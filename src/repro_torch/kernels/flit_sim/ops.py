@@ -1,0 +1,93 @@
+"""Launch wrappers of the fused flit-simulator kernels.
+
+A CPU tensor goes to the kernel's plain version
+(:mod:`repro_torch.kernels.flit_sim.ref`); a CUDA tensor goes to the CUDA
+kernel (:mod:`repro_torch.kernels.flit_sim.kernel`, which allocates the
+output with ``torch.empty``), or the wrapper raises — there is no
+fallback.  Each wrapper checks device, dtype, shape and contiguity and
+adds one to its entry of :data:`launches` where it launches the kernel.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.kernels.flit_sim import kernel as _k
+from repro_torch.kernels.flit_sim import ref as _ref
+from repro_torch.kernels.flit_sim.ref import ASYM_ROWS, SCAL_COLS, SYM_ROWS
+
+#: CUDA launches per kernel since the last :func:`reset_launches`
+launches: Dict[str, int] = {"symmetric_chunk": 0, "asymmetric_periodic": 0,
+                            "symmetric_periodic": 0}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
+    """True for CUDA operands (checked for the kernel's contract), False
+    for CPU operands; raises on a mix or on any other device."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"{name}: operands on several devices {devs}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: no kernel for device {dev}")
+    for t in tensors:
+        if t.dtype != torch.float32 or not t.is_contiguous() or t.ndim != 2:
+            raise ValueError(f"{name}: operands must be contiguous 2-D f32 "
+                             f"tensors, got {t.dtype} {tuple(t.shape)}")
+    return True
+
+
+def _check_rows(name: str, t: torch.Tensor, rows: int, cells: int) -> None:
+    if tuple(t.shape) != (rows, cells):
+        raise ValueError(f"{name}: expected shape {(rows, cells)}, got "
+                         f"{tuple(t.shape)}")
+
+
+def symmetric_chunk(params, state, hist, scal, *, chunk: int):
+    """One adaptive symmetric chunk: the new ``[SYM_ROWS, C]`` state rows
+    (row 11 is the convergence flag)."""
+    if not _on_cuda("symmetric_chunk", params, state, hist, scal):
+        return _ref.symmetric_chunk_compute(params, state, hist, scal,
+                                            chunk=chunk)
+    cells = params.shape[1]
+    for t in (params, state, hist):
+        _check_rows("symmetric_chunk", t, SYM_ROWS, cells)
+    _check_rows("symmetric_chunk", scal, 1, SCAL_COLS)
+    out = _k.symmetric_chunk(params, state, hist, scal, chunk=chunk)
+    launches["symmetric_chunk"] += 1
+    return out
+
+
+def asymmetric_periodic(params, *, n_accesses: int):
+    """Period-exact asymmetric run: ``[ASYM_ROWS, C]`` rows (0 rep,
+    1 detected, 2 period)."""
+    if not _on_cuda("asymmetric_periodic", params):
+        return _ref.asymmetric_periodic_compute(params,
+                                                n_accesses=n_accesses)
+    if n_accesses < _ref.PERIOD_OBS:
+        raise ValueError(f"n_accesses must be >= {_ref.PERIOD_OBS}")
+    _check_rows("asymmetric_periodic", params, ASYM_ROWS, params.shape[1])
+    out = _k.asymmetric_periodic(params, n_accesses=n_accesses)
+    launches["asymmetric_periodic"] += 1
+    return out
+
+
+def symmetric_periodic(params, *, n_flits: int):
+    """Period-exact symmetric run: ``[SYM_PERIODIC_ROWS, C]`` rows
+    (0 rep, 1 detected, 2 period)."""
+    if not _on_cuda("symmetric_periodic", params):
+        return _ref.symmetric_periodic_compute(params, n_flits=n_flits)
+    if n_flits // 4 < _ref.SYM_PERIOD_OBS:
+        raise ValueError(f"n_flits // 4 must be >= {_ref.SYM_PERIOD_OBS}")
+    _check_rows("symmetric_periodic", params, SYM_ROWS, params.shape[1])
+    out = _k.symmetric_periodic(params, n_flits=n_flits)
+    launches["symmetric_periodic"] += 1
+    return out

@@ -1,0 +1,138 @@
+"""The PyTorch port stands alone: no module under ``src/repro_torch``
+imports JAX or the JAX package, importing the port pulls in no JAX, and
+its entry points refuse to fall back to the CPU on a machine with no
+card."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+PORT = SRC / "repro_torch"
+PORT_FILES = sorted(PORT.rglob("*.py"))
+
+
+def _imported_roots(path: pathlib.Path):
+    tree = ast.parse(path.read_text(), str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield (node.module or "").split(".")[0]
+
+
+def test_port_has_modules():
+    names = {p.relative_to(PORT).as_posix() for p in PORT_FILES}
+    for want in ("core/ucie.py", "core/flitsim.py", "core/space.py",
+                 "kernels/flit_sim/ref.py", "kernels/flit_sim/ops.py",
+                 "explorer.py", "convert.py", "_build.py"):
+        assert want in names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: p.relative_to(PORT).as_posix())
+def test_no_jax_or_reference_import(path):
+    roots = set(_imported_roots(path))
+    assert not roots & {"jax", "jaxlib", "repro"}, (path, roots)
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import repro_torch\n"
+        "for m in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def _entry_points():
+    from repro_torch import explorer
+    from repro_torch.core import flitsim, report, selector, space, traffic
+    from repro_torch.roofline import analysis
+    return {
+        "simulate_grid": lambda: flitsim.simulate_grid(
+            ["chi"], [1.0], [1.0], [4.0]),
+        "sweep": lambda: flitsim._sweep_impl(),
+        "DesignSpace": lambda: space.DesignSpace(
+            [space.axis("read_fraction", [0.5])]),
+        "joint_frontier": lambda: space.joint_frontier(n_fracs=3),
+        "build_report": lambda: report.build_report(),
+        "bridge_design_space": lambda: analysis.bridge_design_space(
+            explorer.representative_reports()),
+        "bridge_mode": lambda: explorer.bridge_mode(verbose=False),
+        "explorer_cli": lambda: explorer.main(["--bridge"]),
+        "mix_grid": lambda: traffic.mix_grid(5),
+        "rank": lambda: selector.rank(traffic.TrafficMix(2, 1)),
+    }
+
+
+@pytest.mark.parametrize("name", sorted([
+    "simulate_grid", "sweep", "DesignSpace", "joint_frontier",
+    "build_report", "bridge_design_space", "bridge_mode", "explorer_cli",
+    "mix_grid", "rank"]))
+def test_entry_points_need_a_card_by_default(name):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _entry_points()[name]()
+
+
+def test_ops_route_cpu_to_plain_and_reject_other_devices():
+    from repro_torch.kernels.flit_sim import ops, ref
+    ops.reset_launches()
+    params = torch.zeros((ref.ASYM_ROWS, 4))
+    params[0:6] = torch.tensor([74.0, 36, 24, 10, 96, 576])[:, None]
+    params[6], params[7] = 2.0, 1.0
+    out = ops.asymmetric_periodic(params, n_accesses=4096)
+    assert out.shape == (ref.ASYM_ROWS, 4)
+    assert ops.launches == {k: 0 for k in ops.launches}
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.asymmetric_periodic(params.to("meta"), n_accesses=4096)
+
+
+def test_build_without_nvcc_raises():
+    from repro_torch import _build
+    if any(pathlib.Path(h, "bin", "nvcc").is_file()
+           for h in (os.environ.get("CUDA_HOME") or "/nonexistent",
+                     "/usr/local/cuda")):
+        pytest.skip("nvcc is installed here")
+    import shutil
+    if shutil.which("nvcc"):
+        pytest.skip("nvcc is installed here")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _build.nvcc()
+
+
+def test_nvcc_flags_keep_exact_f32():
+    from repro_torch import _build
+    flags = " ".join(_build.NVCC_FLAGS)
+    assert "-fmad=false" in flags
+    assert "fast_math" not in flags and "fast-math" not in flags
+    assert "sm_90a" in flags
+
+
+def test_cuda_source_constants_match_ref():
+    """The CUDA source repeats ref.py's layout constants."""
+    from repro_torch.kernels.flit_sim import ref
+    src = (PORT / "csrc" / "flit_sim.cu").read_text()
+    for name in ("SYM_ROWS", "ASYM_ROWS", "SYM_PERIODIC_ROWS",
+                 "PERIOD_MAX"):
+        assert f"constexpr int {name} = {getattr(ref, name)};" in src
+    eps = src.split("constexpr float PERIOD_EPS = ")[1].split("f;")[0]
+    assert np.float32(float(eps)) == np.float32(ref.PERIOD_EPS)
+    assert np.isclose(ref.DRIFT_SPAN, 3.0) and "(1.0f / 3.0f)" in src
