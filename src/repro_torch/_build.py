@@ -22,7 +22,8 @@ PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR.parents[1] / "build" / "repro_torch"
 
 #: library name -> CUDA source (relative to the package)
-SOURCES: Dict[str, str] = {"flit_sim": "csrc/flit_sim.cu"}
+SOURCES: Dict[str, str] = {"flit_sim": "csrc/flit_sim.cu",
+                            "flit_pack": "csrc/flit_pack.cu"}
 
 #: exact f32 semantics: no FMA contraction, IEEE division (no fast math)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

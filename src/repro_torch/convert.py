@@ -3,9 +3,10 @@
 The reference keeps its flit-simulator state as parameter stacks
 (``SymmetricFlitParams`` / ``AsymmetricLaneParams`` whose fields are
 ``[P]`` arrays) and row-stacked ``[rows, cells]`` kernel operands and
-states.  These helpers turn numpy copies of either (``np.asarray`` of
-the reference's arrays) into the port's tensors on a given device, so a
-run started in one package can continue in the other.
+states, and its flit-packing data path as int32 byte arrays.  These
+helpers turn numpy copies of either (``np.asarray`` of the reference's
+arrays) into the port's tensors on a given device, so a run started in
+one package can continue in the other.
 """
 from __future__ import annotations
 
@@ -48,3 +49,18 @@ def asymmetric_params(fields, device=None) -> AsymmetricLaneParams:
     """An asymmetric parameter stack from the reference's stack (or a
     mapping of field name -> ``[P]`` array)."""
     return _params(AsymmetricLaneParams, fields, device)
+
+
+def byte_rows(a, device=None) -> torch.Tensor:
+    """A 2-D array of byte values (flit-packing lines, headers, metadata
+    or flits) as a contiguous int32 tensor on ``device``; values are kept
+    exactly (``rows`` would cast them to f32)."""
+    arr = np.asarray(a)
+    if arr.ndim != 2 or not np.issubdtype(arr.dtype, np.integer):
+        raise ValueError(f"byte arrays are 2-D integer arrays, got "
+                         f"{arr.dtype} {arr.shape}")
+    if arr.size and (arr.min() < np.iinfo(np.int32).min
+                     or arr.max() > np.iinfo(np.int32).max):
+        raise ValueError("byte array values do not fit int32")
+    arr = np.ascontiguousarray(arr, dtype=np.int32)
+    return torch.from_numpy(arr.copy()).to(device_mod.resolve(device))

@@ -1,12 +1,13 @@
 """Flit-level link simulators — port of :mod:`repro.core.flitsim`.
 
 Validates the paper's closed-form bandwidth-efficiency expressions with a
-cycle-level simulation of slot scheduling.  Two simulator families run on
-this slice's path:
+cycle-level simulation of slot scheduling.  Three simulator families:
 
   * symmetric  — slot/granule scheduler for approaches C/D/E (256 B flits
     per direction per cycle; headers first, data fills the rest);
-  * asymmetric — lane-group/UI scheduler for approaches A/B.
+  * asymmetric — lane-group/UI scheduler for approaches A/B;
+  * pipelining — Appendix Fig 13: k LPDDR6 devices time-multiplexed
+    behind one UCIe link (link utilization saturates at k = 4).
 
 Parameter *stacks* are frozen dataclasses whose fields are ``[P]`` f32
 tensors, one entry per protocol (optionally folded with perturbations).
@@ -28,7 +29,11 @@ Execution modes (:class:`repro_torch.core.space.SimConfig`):
     detector; everything else runs the host-driven chunk loop, one
     ``symmetric_chunk`` launch per chunk (the reference's
     ``engine="pallas"`` schedule — the port has no XLA ``while_loop``
-    core).
+    core);
+  - pipelining grids run the host-driven chunk loop, one
+    ``pipelining_chunk`` launch per chunk, while the device ready table
+    fits the kernel's ``PIPE_MAX_K`` rows; wider tables run a chunked
+    plain PyTorch core.
 
   Unconverged stragglers (large grids only) and undetected periodic cells
   are re-simulated exactly at the full fixed horizon.
@@ -266,6 +271,32 @@ def _asymmetric_stepfn(p: AsymmetricLaneParams, x, y):
     return step
 
 
+def _pipelining_stepfn(k, ucie_line_ui, device_line_ui):
+    """``step(core) -> core'`` over ``(dev_ready [..., max_k], link_free,
+    idx)``: one line issued to device ``idx mod k``, which starts when
+    both the device and the link are free.  ``k`` and ``idx`` are integer
+    tensors; every operand broadcasts against ``link_free``."""
+    def step(core):
+        dev_ready, link_free, idx = core
+        dev = torch.remainder(idx, k)[..., None]
+        start = torch.maximum(dev_ready.gather(-1, dev)[..., 0], link_free)
+        finish = start + ucie_line_ui
+        dev_ready = dev_ready.scatter(-1, dev,
+                                      (start + device_line_ui)[..., None])
+        return dev_ready, finish, idx + 1
+
+    return step
+
+
+def _pipelining_core_init(max_k: int, shape, device):
+    """Zero ``(dev_ready, link_free, idx)`` core for cells of ``shape``
+    (the ready table padded to ``max_k``: entries past k are never
+    addressed)."""
+    return (torch.zeros(tuple(shape) + (max_k,), dtype=F32, device=device),
+            torch.zeros(tuple(shape), dtype=F32, device=device),
+            torch.zeros(tuple(shape), dtype=torch.long, device=device))
+
+
 def _zeros_like_all(*ts) -> torch.Tensor:
     shape = torch.broadcast_shapes(*[t.shape for t in ts])
     return torch.zeros(shape, dtype=F32, device=ts[0].device)
@@ -307,6 +338,22 @@ def _asymmetric_efficiency(p: AsymmetricLaneParams, x, y, n_accesses: int):
             / (p.total_lanes * t_total))
 
 
+def _pipelining_utilization(k, ucie_line_ui, device_line_ui,
+                            max_k: int, n_lines: int):
+    """Appendix Fig 13: k x12 LPDDR6 devices time-multiplexed behind the
+    logic die.  The UCIe link moves a 64 B line in ``ucie_line_ui`` UI;
+    each device sources a line every ``device_line_ui`` UI.  Returns link
+    data utilization — 1.0 at k = 4.  Commands are pipelined (Fig 13), so
+    only device ready times are modelled."""
+    step = _pipelining_stepfn(k, ucie_line_ui, device_line_ui)
+    shape = torch.broadcast_shapes(k.shape, ucie_line_ui.shape,
+                                   device_line_ui.shape)
+    core = _pipelining_core_init(max_k, shape, ucie_line_ui.device)
+    for _ in range(n_lines):
+        core = step(core)
+    return n_lines * ucie_line_ui / core[1]
+
+
 def _symmetric_grid(pstack, x, y, backlogs, *, n_flits: int):
     """[P params] x [B backlogs] x [M mixes] -> efficiency [P, B, M]."""
     p = pstack.map(lambda f: f[:, None, None])
@@ -318,6 +365,16 @@ def _asymmetric_grid(pstack, x, y, *, n_accesses: int):
     """[P params] x [M mixes] -> efficiency [P, M] (backlog-independent)."""
     p = pstack.map(lambda f: f[:, None])
     return _asymmetric_efficiency(p, x[None, :], y[None, :], n_accesses)
+
+
+def _pipelining_grid(ks, ucie_line_uis, device_line_uis, *, max_k: int,
+                     n_lines: int):
+    """[K device counts] x [U link UIs] x [D device UIs] -> utilization
+    [K, U, D] — the joint faster-DRAM-generations sweep."""
+    return _pipelining_utilization(ks[:, None, None],
+                                   ucie_line_uis[None, :, None],
+                                   device_line_uis[None, None, :],
+                                   max_k, n_lines)
 
 
 def _symmetric_cells_grid(pcells, xs, ys, bs, *, n_flits: int):
@@ -488,6 +545,20 @@ def _asym_param_rows(pstack, x, y):
     rows.append(y.repeat(P))
     pad = torch.zeros_like(rows[0])
     return torch.stack(rows + [pad] * (fs_ref.ASYM_ROWS - len(rows)))
+
+
+def _pipe_param_rows(ks, ucie_line_uis, device_line_uis):
+    """Row-stack a pipelining grid into ``[PIPE_ROWS, K*U*D]`` (rows 0 k,
+    1 ucie_line_ui, 2 device_line_ui; cell order matches
+    ``rep.reshape(K, U, D)``)."""
+    from repro_torch.kernels.flit_sim import ref as fs_ref
+    Kk, U, Dn = (ks.shape[0], ucie_line_uis.shape[0],
+                 device_line_uis.shape[0])
+    rows = [ks.to(F32).repeat_interleave(U * Dn),
+            ucie_line_uis.repeat_interleave(Dn).repeat(Kk),
+            device_line_uis.repeat(Kk * U)]
+    pad = torch.zeros_like(rows[0])
+    return torch.stack(rows + [pad] * (fs_ref.PIPE_ROWS - len(rows)))
 
 
 def _scal_row(values, device) -> torch.Tensor:
@@ -677,6 +748,91 @@ def _asymmetric_grid_adaptive(pstack, x, y, *, n_accesses: int, chunk: int,
     return rep, conv.cpu().numpy(), k, conv_at
 
 
+def _run_pipelining_fused(ks, ucie_line_uis, device_line_uis,
+                          horizon: int, chunk: int, sim: SimConfig):
+    """Host-driven adaptive pipelining loop on the fused chunk kernel (the
+    reference's ``_run_pipelining_pallas``): one ``pipelining_chunk``
+    launch per chunk, the host reading one flag row per chunk.  No drift
+    guard or escalation: the rotation report converges monotonically."""
+    from repro_torch.kernels.flit_sim import ops as fs_ops
+    from repro_torch.kernels.flit_sim import ref as fs_ref
+    dev = ucie_line_uis.device
+    Kk, U, Dn = (ks.shape[0], ucie_line_uis.shape[0],
+                 device_line_uis.shape[0])
+    cells = Kk * U * Dn
+    K = horizon // chunk
+    min_k = min(_MIN_EXIT_CHUNKS, K)
+    t0 = time.perf_counter()
+    params = _pipe_param_rows(ks, ucie_line_uis, device_line_uis)
+    state = torch.zeros((fs_ref.PIPE_ROWS, cells), dtype=F32, device=dev)
+    hist = torch.zeros((fs_ref.ASYM_ROWS, cells), dtype=F32, device=dev)
+
+    def scal_for(k: int):
+        return _scal_row([k, K, chunk, sim.tol,
+                          1.0 if k >= min_k else 0.0,
+                          1.0 if k >= K else 0.0, horizon], dev)
+
+    conv_at = np.full(cells, -1, np.int32)
+    k = 0
+    while k < K:
+        k += 1
+        state = fs_ops.pipelining_chunk(params, state, hist, scal_for(k),
+                                        chunk=chunk)
+        if k == 1:      # T1 anchor for the linear-growth extrapolation
+            hist = torch.cat([state[8:9], torch.zeros(
+                (fs_ref.ASYM_ROWS - 1, cells), dtype=F32, device=dev)])
+        conv_np = (state[11] > 0.5).cpu().numpy()
+        conv_at[(conv_at < 0) & conv_np] = k
+        if int((~conv_np).sum()) == 0:
+            break
+    rep = state[10].reshape(Kk, U, Dn)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    _record_adaptive("flitsim.pipelining", horizon, chunk, k,
+                     conv_at.reshape(Kk, U, Dn), 0, engine="fused",
+                     launches=k, elapsed_s=time.perf_counter() - t0)
+    return rep
+
+
+def _pipelining_grid_adaptive(ks, ucie_line_uis, device_line_uis, *,
+                              max_k: int, n_lines: int, chunk: int,
+                              tol: float):
+    """Chunked early-exit pipelining core over ``[K, U, D]`` in plain
+    PyTorch (ready tables wider than the kernel's ``PIPE_MAX_K`` rows).
+    The link free time grows linearly once the k-device rotation fills,
+    so the report extrapolates it from the first chunk's anchor.  Returns
+    ``(report, chunks_run, conv_at)``."""
+    dev = ucie_line_uis.device
+    shape = (ks.shape[0], ucie_line_uis.shape[0], device_line_uis.shape[0])
+    K = n_lines // chunk
+    min_k = min(_MIN_EXIT_CHUNKS, K)
+    ch = float(chunk)
+    ucie = ucie_line_uis[None, :, None]
+    step = _pipelining_stepfn(ks[:, None, None], ucie,
+                              device_line_uis[None, None, :])
+    core = _pipelining_core_init(max_k, shape, dev)
+    Th = [core[1]]
+    rep = torch.zeros(shape, dtype=F32, device=dev)
+    conv_at = np.full(shape, -1, np.int32)
+    k, unconv = 0, 1
+    while k < K and unconv > 0:
+        for _ in range(chunk):
+            core = step(core)
+        k += 1
+        T_k = core[1]
+        Th.append(T_k)
+        ahat = (T_k - Th[1]) / torch.full_like(T_k, max((k - 1) * ch, 1.0))
+        tail = float(K - k) * ch
+        new_rep = n_lines * ucie / torch.clamp_min(T_k + ahat * tail, 1e-9)
+        delta = (torch.abs(new_rep - rep)
+                 / torch.clamp_min(torch.abs(new_rep), 1e-9))
+        conv_np = (((delta <= tol) & (k >= min_k)) | (k >= K)).cpu().numpy()
+        conv_at[(conv_at < 0) & conv_np] = k
+        unconv = int((~conv_np).sum())
+        rep = new_rep
+    return rep, k, conv_at
+
+
 def _run_symmetric(pstack, x, y, backlogs, n_flits: int,
                    sim: Optional[SimConfig] = None):
     sim = sim if sim is not None else FIXED_SIM
@@ -735,6 +891,32 @@ def _run_asymmetric(pstack, x, y, n_accesses: int,
     _record_adaptive("flitsim.asymmetric", horizon, chunk, k_exit, conv_at,
                      stragglers, engine="torch",
                      launches=1 + (1 if stragglers else 0),
+                     elapsed_s=time.perf_counter() - t0)
+    return rep
+
+
+def _run_pipelining(ks, ucie_line_uis, device_line_uis, max_k: int,
+                    n_lines: int, sim: Optional[SimConfig] = None):
+    sim = sim if sim is not None else FIXED_SIM
+    if sim.mode == "fixed":
+        return _pipelining_grid(ks, ucie_line_uis, device_line_uis,
+                                max_k=max_k, n_lines=n_lines)
+    horizon = sim.horizon(n_lines)
+    chunk = _divisor_chunk(horizon, sim.chunk)
+    if chunk < 8:
+        return _run_pipelining(ks, ucie_line_uis, device_line_uis, max_k,
+                               horizon, sim=FIXED_SIM)
+    from repro_torch.kernels.flit_sim.ref import PIPE_MAX_K
+    if max_k <= PIPE_MAX_K:     # the kernel holds PIPE_MAX_K ready rows
+        return _run_pipelining_fused(ks, ucie_line_uis, device_line_uis,
+                                     horizon, chunk, sim)
+    t0 = time.perf_counter()
+    rep, k_exit, conv_at = _pipelining_grid_adaptive(
+        ks, ucie_line_uis, device_line_uis, max_k=max_k, n_lines=horizon,
+        chunk=chunk, tol=float(sim.tol))
+    _record_adaptive("flitsim.pipelining", horizon, chunk, k_exit, conv_at,
+                     0,                 # exits only converged / at horizon
+                     engine="torch", launches=1,
                      elapsed_s=time.perf_counter() - t0)
     return rep
 
@@ -894,6 +1076,74 @@ def _sweep_impl(protocols: Optional[Sequence[str]] = None,
                        backlogs=backlog_vals, efficiency=eff)
 
 
+# -- scalar entry points (thin wrappers over a [1, 1, 1] grid) ----------------
+
+
+def simulate_symmetric(params: SymmetricFlitParams, x: float, y: float,
+                       n_flits: int = 2048, backlog: float = 64, *,
+                       device=None) -> float:
+    """Single-point symmetric simulation (fixed engine)."""
+    _check_mix(x, y)
+    dev = device_mod.resolve(device)
+    pstack = SymmetricFlitParams.stack([params], dev)
+    eff = _run_symmetric(pstack, _f32([x], dev), _f32([y], dev),
+                         _f32([backlog], dev), int(n_flits))
+    return float(eff[0, 0, 0])
+
+
+def simulate_asymmetric(params: AsymmetricLaneParams, x: float, y: float,
+                        n_accesses: int = 4096, *, device=None) -> float:
+    """Single-point asymmetric simulation (fixed engine)."""
+    _check_mix(x, y)
+    dev = device_mod.resolve(device)
+    pstack = AsymmetricLaneParams.stack([params], dev)
+    eff = _run_asymmetric(pstack, _f32([x], dev), _f32([y], dev),
+                          int(n_accesses))
+    return float(eff[0, 0])
+
+
+#: ready-table width every k <= 8 shares (the kernel's PIPE_MAX_K rows)
+_PIPELINING_PAD_K = 8
+
+
+def _ks(ks, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(ks, np.int64).reshape(-1),
+                           device=device)
+
+
+def simulate_lpddr6_pipelining(num_devices: int, n_lines: int = 512,
+                               ucie_line_ui: float = 16,
+                               device_line_ui: float = 64, *,
+                               device=None) -> float:
+    """Single-k Fig-13 pipelining simulation (fixed engine)."""
+    dev = device_mod.resolve(device)
+    max_k = max(int(num_devices), _PIPELINING_PAD_K)
+    u = _run_pipelining(_ks([num_devices], dev), _f32([ucie_line_ui], dev),
+                        _f32([device_line_ui], dev), max_k, int(n_lines))
+    return float(u[0, 0, 0])
+
+
+def _sweep_pipelining_impl(ks: Sequence[int], n_lines: int = 512,
+                           ucie_line_ui: Union[float, Sequence[float]] = 16,
+                           device_line_ui: Union[float, Sequence[float]] = 64,
+                           sim: Optional[SimConfig] = None,
+                           device=None) -> torch.Tensor:
+    """Engine body of the ``k`` / ``ucie_line_ui`` / ``device_line_ui``
+    design-space axes: utilization ``[K, U, D]`` (``[K]`` when both UI
+    arguments are scalars)."""
+    dev = device_mod.resolve(device)
+    ks = tuple(int(k) for k in ks)
+    squeeze = (np.ndim(ucie_line_ui) == 0 and np.ndim(device_line_ui) == 0)
+    us = _f32(np.atleast_1d(np.asarray(ucie_line_ui, dtype=np.float64)),
+              dev)
+    ds = _f32(np.atleast_1d(np.asarray(device_line_ui, dtype=np.float64)),
+              dev)
+    max_k = max(max(ks), _PIPELINING_PAD_K)
+    util = _run_pipelining(_ks(ks, dev), us, ds, max_k, int(n_lines),
+                           sim=sim)
+    return util[:, 0, 0] if squeeze else util
+
+
 #: Default queue-depth axis for knee extraction.
 KNEE_BACKLOGS: Tuple[float, ...] = (1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0,
                                     128.0)
@@ -921,3 +1171,19 @@ def backlog_knees(mixes=None,
         first = np.argmax(ok, axis=0)
         knees[key] = b[first] if per_mix else float(b[first].max())
     return knees
+
+
+#: scalar simulator per protocol key: ``SIMULATORS[key](x, y,
+#: device=None) -> efficiency`` (fixed engine)
+SIMULATORS = {
+    "cxl_unopt": lambda x, y, device=None: simulate_symmetric(
+        SymmetricFlitParams.cxl_unopt(), x, y, device=device),
+    "cxl_opt": lambda x, y, device=None: simulate_symmetric(
+        SymmetricFlitParams.cxl_opt(), x, y, device=device),
+    "chi": lambda x, y, device=None: simulate_symmetric(
+        SymmetricFlitParams.chi(), x, y, device=device),
+    "lpddr6_asym": lambda x, y, device=None: simulate_asymmetric(
+        AsymmetricLaneParams.lpddr6(), x, y, device=device),
+    "hbm_asym": lambda x, y, device=None: simulate_asymmetric(
+        AsymmetricLaneParams.hbm(), x, y, device=device),
+}

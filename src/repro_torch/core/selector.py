@@ -159,6 +159,14 @@ def rank(mix: TrafficMix,
     return sorted(out, key=keyfn)
 
 
+def best(mix: TrafficMix, **kw) -> RankedSystem:
+    """The top of :func:`rank` (same keyword arguments)."""
+    ranked = rank(mix, **kw)
+    if not ranked:
+        raise ValueError("no memory system satisfies the constraints")
+    return ranked[0]
+
+
 def _rank_grid_impl(x, y,
                     constraints: SelectionConstraints = SelectionConstraints(),
                     catalog: Optional[Dict[str, MemorySystem]] = None,

@@ -1,9 +1,9 @@
 """Axes-first design-space API — port of :mod:`repro.core.space`.
 
 * :func:`axis` / :class:`Axis` / :class:`AxisSet` — named design-space
-  axes.  This slice ports the axes the bridge uses: ``phy``,
-  ``read_fraction``, ``mix``, ``backlog``, ``shoreline_mm`` and
-  ``workload_config``.
+  axes.  The port evaluates ``phy``, ``read_fraction``, ``mix``,
+  ``backlog``, ``shoreline_mm``, ``workload_config`` and the Fig-13
+  pipelining axes ``k``, ``ucie_line_ui`` and ``device_line_ui``.
 * :class:`DesignSpace` — lowers an axis combination onto the analytic
   catalog programs (:mod:`repro_torch.core.memsys`) and the flit
   simulators (:mod:`repro_torch.core.flitsim`) on one device.
@@ -89,8 +89,8 @@ AXIS_ORDER: Tuple[str, ...] = (
 
 #: the axes this port evaluates (the rest wait for later slices)
 PORTED_AXES: Tuple[str, ...] = (
-    "backlog", "mix", "phy", "read_fraction", "shoreline_mm",
-    "workload_config")
+    "backlog", "device_line_ui", "k", "mix", "phy", "read_fraction",
+    "shoreline_mm", "ucie_line_ui", "workload_config")
 
 
 def _mix_label(x: float, y: float) -> str:
@@ -169,7 +169,11 @@ def axis(name: str, values: Sequence[Any],
     elif name == "workload_config":
         norm = [_as_workload(v) for v in vals]
         labs = [n for n, _ in norm]
-    elif name in ("backlog", "shoreline_mm"):
+    elif name == "k":
+        norm = [int(v) for v in vals]
+        labs = list(norm)
+    elif name in ("backlog", "shoreline_mm", "ucie_line_ui",
+                  "device_line_ui"):
         norm = [float(v) for v in vals]
         labs = list(norm)
     elif name in AXIS_ORDER:
@@ -557,6 +561,8 @@ SIM_PHY_METRICS: Tuple[str, ...] = ("sim_bandwidth_gbs",)
 #: approach-density metrics on a PHY (dims: approach [x phy] [x mix])
 APPROACH_METRICS: Tuple[str, ...] = (
     "linear_density_gbs_mm", "areal_density_gbs_mm2", "approach_pj_per_bit")
+#: Fig-13 pipelining metric (dims: k [x ucie_line_ui] [x device_line_ui])
+PIPELINE_METRICS: Tuple[str, ...] = ("utilization",)
 
 
 class DesignSpace:
@@ -573,6 +579,7 @@ class DesignSpace:
                  default_shoreline_mm: float = 8.0,
                  default_backlog: float = 64.0,
                  n_flits: int = 2048, n_accesses: int = 4096,
+                 n_lines: int = 512,
                  sim: Optional[SimConfig] = None,
                  device=None):
         from repro_torch import device as device_mod
@@ -583,6 +590,7 @@ class DesignSpace:
         self.default_backlog = float(default_backlog)
         self.n_flits = int(n_flits)
         self.n_accesses = int(n_accesses)
+        self.n_lines = int(n_lines)
         self.sim = sim if sim is not None else FIXED_SIM
         self.device = device_mod.resolve(device)
         mix_ax = self.axes.mix_axis()
@@ -653,10 +661,13 @@ class DesignSpace:
                 out += list(SIM_METRICS)
                 if "phy" in names or self.phy is not None:
                     out += list(SIM_PHY_METRICS)
+        if "k" in names:
+            out += list(PIPELINE_METRICS)
         if not out:
             raise ValueError(
                 f"no metric is evaluable over axes {names}; add a traffic "
-                "axis (mix/read_fraction/workload_config)")
+                "axis (mix/read_fraction/workload_config) or a pipelining "
+                "axis (k)")
         return tuple(out)
 
     def _tensor(self, a) -> "Any":
@@ -674,7 +685,7 @@ class DesignSpace:
         wanted = tuple(metrics) if metrics is not None else \
             self._default_metrics()
         known = (ANALYTIC_METRICS + SYSTEM_METRICS + SIM_METRICS
-                 + SIM_PHY_METRICS + APPROACH_METRICS)
+                 + SIM_PHY_METRICS + APPROACH_METRICS + PIPELINE_METRICS)
         unknown = [m for m in wanted if m not in known]
         if unknown:
             raise ValueError(f"unknown metrics {unknown}; choose from "
@@ -686,6 +697,8 @@ class DesignSpace:
             arrays.update(self._eval_approaches(wanted))
         if any(m in wanted for m in SIM_METRICS + SIM_PHY_METRICS):
             arrays.update(self._eval_sim(wanted, cfg))
+        if any(m in wanted for m in PIPELINE_METRICS):
+            arrays.update(self._eval_pipelining(wanted, cfg))
         return SpaceResult(axes=self.axes, arrays=arrays, sim=cfg,
                            device=self.device)
 
@@ -844,6 +857,37 @@ class DesignSpace:
                 ("protocol",) + mix_dims,
                 (keys,) + tuple(self.axes[d].labels for d in mix_dims), an)
         return out
+
+    def _eval_pipelining(self, wanted, sim: SimConfig
+                         ) -> Dict[str, SpaceArray]:
+        from repro_torch.core import flitsim
+        k_ax = self.axes.get("k")
+        if k_ax is None:
+            raise ValueError("the 'utilization' metric needs a 'k' axis")
+        u_ax = self.axes.get("ucie_line_ui")
+        d_ax = self.axes.get("device_line_ui")
+        us = tuple(u_ax.values) if u_ax is not None else (16.0,)
+        ds = tuple(d_ax.values) if d_ax is not None else (64.0,)
+        util = flitsim._sweep_pipelining_impl(
+            k_ax.values, n_lines=self.n_lines, ucie_line_ui=us,
+            device_line_ui=ds, sim=sim,
+            device=self.device).cpu().numpy()      # [K, U, D]
+        dims: List[str] = ["k"]
+        coords: List[Tuple] = [k_ax.labels]
+        if u_ax is not None:
+            dims.append("ucie_line_ui")
+            coords.append(u_ax.labels)
+        else:
+            util = util[:, 0]
+        if d_ax is not None:
+            dims.append("device_line_ui")
+            coords.append(d_ax.labels)
+        else:
+            util = util[..., 0]
+        if "utilization" not in wanted:
+            return {}
+        return {"utilization": SpaceArray(tuple(dims), tuple(coords),
+                                          util)}
 
     def report(self, spec=None) -> Dict[str, Any]:
         """ONE entry point for every frontier report — see

@@ -9,6 +9,8 @@ vectorized call.
 from __future__ import annotations
 
 import dataclasses
+from typing import Tuple
+
 import torch
 
 from repro_torch import device as device_mod
@@ -50,6 +52,20 @@ class TrafficMix:
         if tot <= 0:
             return cls(1.0, 0.0)
         return cls(100.0 * rx / tot, 100.0 * wy / tot)
+
+
+# The representative mixes of the Figures 10-12 style sweeps (100%R ...
+# 100%W).
+PAPER_MIXES: Tuple[TrafficMix, ...] = (
+    TrafficMix(1, 0),   # 100% reads
+    TrafficMix(4, 1),   # 80/20
+    TrafficMix(3, 1),   # 75/25
+    TrafficMix(2, 1),   # 67/33 (the paper's canonical "predominant" mix)
+    TrafficMix(1, 1),   # 50/50
+    TrafficMix(1, 2),   # 33/67
+    TrafficMix(1, 3),   # 25/75
+    TrafficMix(0, 1),   # 100% writes
+)
 
 
 def mix_grid(n: int = 101, device=None):

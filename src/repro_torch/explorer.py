@@ -1,9 +1,16 @@
-"""Memory-system explorer, bridge mode — port of the ``--bridge`` mode of
-``examples/memsys_explorer.py``.
+"""Memory-system explorer — port of the ``--bridge`` and ``--sweep`` modes
+of ``examples/memsys_explorer.py``.
 
     python -m repro_torch.explorer --bridge [--out DIR] [--device cpu]
+    python -m repro_torch.explorer --sweep [--device cpu]
 
-Stacks every workload's traffic mix (the representative train / prefill /
+Sweep mode flit-simulates every protocol over a dense read-fraction x
+backlog grid with the adaptive engine (the ``symmetric_chunk`` and
+``asymmetric_periodic`` kernels on the card), prints the best protocol per
+read-fraction regime at backlog 64, and ranks the catalog over the same
+read-fraction axis.
+
+Bridge mode stacks every workload's traffic mix (the representative train / prefill /
 decode workloads below) as a ``workload_config`` axis on top of the dense
 mix grid and a shoreline axis, resolves the whole [configs x catalog x
 mixes x shorelines] space, then builds the joint analytic-vs-simulated
@@ -20,7 +27,9 @@ import json
 import os
 import time
 from pathlib import Path
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from repro_torch import device as device_mod
 
@@ -39,6 +48,99 @@ REPRESENTATIVE_WORKLOADS = {
 #: the reference's HBM-baseline rate for ``memory_s`` (bytes/s), a model
 #: input of the bridge, not a property of the card the port runs on
 HBM_BASELINE_BYTES_PER_S = 8.192e11
+
+
+def _runs(labels: Sequence[Any], fracs: np.ndarray
+          ) -> List[Tuple[float, float, str]]:
+    """Contiguous ``(first fraction, last fraction, label)`` runs along the
+    read-fraction axis, as the reference's sweep mode prints them."""
+    out = []
+    start = 0
+    for j in range(1, len(labels) + 1):
+        if j == len(labels) or labels[j] != labels[start]:
+            out.append((float(fracs[start]), float(fracs[j - 1]),
+                        str(labels[start])))
+            start = j
+    return out
+
+
+def sweep_mode(n_fracs: int = 41,
+               backlogs: Sequence[float] = (1, 2, 4, 8, 16, 32, 64, 128),
+               *, device=None, verbose: bool = True) -> Dict[str, Any]:
+    """Dense design-space sweep: read fraction x backlog x protocol, with
+    the adaptive engine on ``device`` (default ``"cuda"``), then the
+    catalog ranking over the same read-fraction axis.
+
+    Returns ``efficiency`` ``[P, B, M]``, ``protocols``, ``fracs``,
+    ``regimes`` (best simulated protocol per read-fraction run at backlog
+    64, or the last backlog), ``catalog_regimes`` (best catalog system by
+    bandwidth per run), ``launches`` (kernel launches of the sweep),
+    ``run_info`` (the engines' :func:`flitsim.last_run_info`) and
+    ``sim_s`` (wall seconds of the simulated part)."""
+    from repro_torch.core import flitsim
+    from repro_torch.core.space import ADAPTIVE_SIM, DesignSpace, axis
+    from repro_torch.core.traffic import mix_grid
+    from repro_torch.kernels.flit_sim import ops as fs_ops
+    dev = device_mod.resolve(device)
+    say = print if verbose else (lambda *a, **k: None)
+    x, _ = mix_grid(n_fracs, device="cpu")
+    fracs = x.numpy() / 100.0
+
+    before = dict(fs_ops.launches)
+    t0 = time.perf_counter()
+    res = DesignSpace([
+        axis("backlog", list(backlogs)),
+        axis("read_fraction", fracs),
+    ], sim=ADAPTIVE_SIM, device=dev).evaluate(metrics=("sim_efficiency",))
+    sa = res["sim_efficiency"]
+    protocols = list(sa.coord("protocol"))
+    eff = np.asarray(sa.values)                   # [P, B, M]
+    t_sim = time.perf_counter() - t0
+    launches = {k: v - before[k] for k, v in fs_ops.launches.items()}
+    run_info = flitsim.last_run_info()
+    say(f"flit-simulated {eff.size} grid points "
+        f"({len(protocols)} protocols x {len(backlogs)} backlogs x "
+        f"{n_fracs} read fractions) in {t_sim:.2f}s on {dev} "
+        f"[kernel launches {launches}]")
+    for fam, info in sorted(run_info.items()):
+        say(f"    {fam.split('.')[1]:10s} adaptive: "
+            f"{info['cycles_run']}/{info['horizon']} cycles "
+            f"({info['stragglers']} stragglers re-simulated exactly)")
+
+    bl = list(backlogs)
+    bl_ref = bl.index(64) if 64 in bl else len(bl) - 1
+    say(f"\nsimulated data efficiency at backlog={bl[bl_ref]} "
+        f"(read fraction 0 / 0.5 / 1):")
+    mid = n_fracs // 2
+    for i, key in enumerate(protocols):
+        e = eff[i, bl_ref]
+        sens = float(np.max(eff[i, :, mid]) - np.min(eff[i, :, mid]))
+        say(f"    {key:12s} {e[0]:.3f} / {e[mid]:.3f} / {e[-1]:.3f}   "
+            f"backlog sensitivity @50/50: {sens:.3f}")
+
+    say("\nbest simulated protocol per read-fraction regime "
+        f"(backlog={bl[bl_ref]}):")
+    best = np.argmax(eff[:, bl_ref, :], axis=0)
+    regimes = _runs([protocols[b] for b in best], fracs)
+    for lo, hi, key in regimes:
+        say(f"    read fraction {lo:.2f}-{hi:.2f}: {key}")
+
+    # catalog ranking over the same read-fraction axis
+    t0 = time.perf_counter()
+    cres = DesignSpace([axis("read_fraction", fracs)], device=dev).evaluate(
+        metrics=("bandwidth_gbs",))
+    keys = cres.frontier("bandwidth_gbs").values
+    n_sys = len(cres["bandwidth_gbs"].coord("system"))
+    t_rank = time.perf_counter() - t0
+    say(f"\ncatalog ranking over {n_fracs} read fractions "
+        f"({n_sys} systems) in {t_rank*1e3:.1f} ms:")
+    catalog_regimes = _runs(list(keys), fracs)
+    for lo, hi, key in catalog_regimes:
+        say(f"    read fraction {lo:.2f}-{hi:.2f}: {key}")
+    return {"efficiency": eff, "protocols": protocols, "fracs": fracs,
+            "backlogs": [float(b) for b in bl], "regimes": regimes,
+            "catalog_regimes": catalog_regimes, "launches": launches,
+            "run_info": run_info, "sim_s": t_sim}
 
 
 def representative_reports() -> Dict[str, Any]:
@@ -124,15 +226,20 @@ def bridge_mode(out_dir: Optional[os.PathLike] = None, *,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--bridge", action="store_true", required=True,
-                    help="workload -> design-space bridge (the only mode "
-                         "this port has so far)")
+    mode = ap.add_mutually_exclusive_group(required=True)
+    mode.add_argument("--bridge", action="store_true",
+                      help="workload -> design-space bridge")
+    mode.add_argument("--sweep", action="store_true",
+                      help="dense read-fraction x backlog sweep")
     ap.add_argument("--out", default=None,
-                    help=f"output directory (default {DEFAULT_OUT})")
+                    help=f"bridge output directory (default {DEFAULT_OUT})")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
     args = ap.parse_args(argv)
-    bridge_mode(args.out, device=args.device)
+    if args.sweep:
+        sweep_mode(device=args.device)
+    else:
+        bridge_mode(args.out, device=args.device)
 
 
 if __name__ == "__main__":

@@ -17,7 +17,7 @@ import torch
 
 from repro_torch import _build
 from repro_torch.kernels.flit_sim.ref import (
-    ASYM_ROWS, SYM_PERIODIC_ROWS, SYM_ROWS,
+    ASYM_ROWS, PIPE_ROWS, SYM_PERIODIC_ROWS, SYM_ROWS,
 )
 
 _P = ctypes.c_void_p
@@ -30,14 +30,15 @@ def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (once)."""
     if not _LIB:
         lib = _build.load("flit_sim")
-        lib.flit_symmetric_chunk.argtypes = [_P, _P, _P, _P, _P,
-                                             ctypes.c_long, ctypes.c_int, _P]
+        for fn in (lib.flit_symmetric_chunk, lib.flit_pipelining_chunk):
+            fn.argtypes = [_P, _P, _P, _P, _P, ctypes.c_long, ctypes.c_int,
+                           _P]
         lib.flit_asymmetric_periodic.argtypes = [_P, _P, ctypes.c_long,
                                                  ctypes.c_int, _P]
         lib.flit_symmetric_periodic.argtypes = [_P, _P, ctypes.c_long,
                                                 ctypes.c_int, _P]
         for fn in (lib.flit_symmetric_chunk, lib.flit_asymmetric_periodic,
-                   lib.flit_symmetric_periodic):
+                   lib.flit_symmetric_periodic, lib.flit_pipelining_chunk):
             fn.restype = ctypes.c_int
         _LIB.append(lib)
     return _LIB[0]
@@ -88,4 +89,17 @@ def symmetric_periodic(params, *, n_flits: int):
         params.data_ptr(), out.data_ptr(), params.shape[1], int(n_flits),
         _stream(params))
     _raise_on(err, "symmetric_periodic")
+    return out
+
+
+def pipelining_chunk(params, state, hist, scal, *, chunk: int):
+    """Launch one adaptive pipelining chunk: ``[PIPE_ROWS, C]`` from
+    ``params`` / ``state`` ``[PIPE_ROWS, C]``, ``hist`` ``[ASYM_ROWS, C]``
+    and ``scal`` ``[1, SCAL_COLS]``."""
+    out = _out(PIPE_ROWS, params)
+    err = _lib().flit_pipelining_chunk(
+        params.data_ptr(), state.data_ptr(), hist.data_ptr(),
+        scal.data_ptr(), out.data_ptr(), params.shape[1], int(chunk),
+        _stream(params))
+    _raise_on(err, "pipelining_chunk")
     return out

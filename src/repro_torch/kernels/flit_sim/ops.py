@@ -15,11 +15,13 @@ import torch
 
 from repro_torch.kernels.flit_sim import kernel as _k
 from repro_torch.kernels.flit_sim import ref as _ref
-from repro_torch.kernels.flit_sim.ref import ASYM_ROWS, SCAL_COLS, SYM_ROWS
+from repro_torch.kernels.flit_sim.ref import (
+    ASYM_ROWS, PIPE_ROWS, SCAL_COLS, SYM_ROWS,
+)
 
 #: CUDA launches per kernel since the last :func:`reset_launches`
 launches: Dict[str, int] = {"symmetric_chunk": 0, "asymmetric_periodic": 0,
-                            "symmetric_periodic": 0}
+                            "symmetric_periodic": 0, "pipelining_chunk": 0}
 
 
 def reset_launches() -> None:
@@ -90,4 +92,20 @@ def symmetric_periodic(params, *, n_flits: int):
     _check_rows("symmetric_periodic", params, SYM_ROWS, params.shape[1])
     out = _k.symmetric_periodic(params, n_flits=n_flits)
     launches["symmetric_periodic"] += 1
+    return out
+
+
+def pipelining_chunk(params, state, hist, scal, *, chunk: int):
+    """One adaptive Fig-13 pipelining chunk: the new ``[PIPE_ROWS, C]``
+    state rows (row 11 is the convergence flag)."""
+    if not _on_cuda("pipelining_chunk", params, state, hist, scal):
+        return _ref.pipelining_chunk_compute(params, state, hist, scal,
+                                             chunk=chunk)
+    cells = params.shape[1]
+    for t in (params, state):
+        _check_rows("pipelining_chunk", t, PIPE_ROWS, cells)
+    _check_rows("pipelining_chunk", hist, ASYM_ROWS, cells)
+    _check_rows("pipelining_chunk", scal, 1, SCAL_COLS)
+    out = _k.pipelining_chunk(params, state, hist, scal, chunk=chunk)
+    launches["pipelining_chunk"] += 1
     return out

@@ -43,6 +43,23 @@ symmetric ``scal`` [1, 128] broadcast scalars::
 asymmetric ``params`` [8, C]: AsymmetricLaneParams fields in dataclass
 order then 6 x, 7 y.  Output [8, C]: 0 rep, 1 detected, 2 period.
 
+pipelining ``params`` [16, C] (pad rows zero)::
+
+    0 k (devices)   1 ucie_line_ui   2 device_line_ui
+
+pipelining ``state`` [16, C] — also the chunk output layout::
+
+    0..7   device ready table (rows past k never addressed)
+    8 link_free   9 idx (lines issued)   10 rep   11 conv (output only)
+
+pipelining ``hist`` [8, C]: row 0 the link free time after chunk 1 (the
+T1 anchor of the linear-growth extrapolation; unused at chunk 1).
+
+pipelining ``scal`` [1, 128]::
+
+    0 k  1 K  2 chunk  3 tol  4 exit_ok (k >= min_k)  5 at_horizon
+    6 n_lines (the horizon)
+
 symmetric periodic: input is the symmetric ``params`` [16, C] stack;
 output [8, C]: 0 rep, 1 detected, 2 period (pad rows zero).
 """
@@ -58,6 +75,7 @@ from repro_torch.core.flitsim import (
 #: rows per stacked operand
 SYM_ROWS = 16
 ASYM_ROWS = 8
+PIPE_ROWS = 16
 #: broadcast-scalar operand shape (one row)
 SCAL_COLS = 128
 
@@ -80,6 +98,9 @@ SYM_PERIODIC_ROWS = 8
 #: periodic probe (saturated pools re-round the read/write split every
 #: cycle, so their state period always exceeds PERIOD_MAX)
 SYM_PERIODIC_MAX_BACKLOG = 4.0
+
+#: device-ready table width shared with flitsim._PIPELINING_PAD_K
+PIPE_MAX_K = 8
 
 #: drift-guard pool-snapshot span (mirrors flitsim._DRIFT_SPAN)
 DRIFT_SPAN = 3.0
@@ -262,3 +283,43 @@ def symmetric_periodic_compute(params, *, n_flits: int):
     pad = torch.zeros_like(rep)
     return torch.stack([rep, detected.to(torch.float32), period]
                        + [pad] * (SYM_PERIODIC_ROWS - 3))
+
+
+def pipelining_chunk_compute(params, state, hist, scal, *, chunk: int):
+    """Per-chunk body of the adaptive Fig-13 pipelining loop.
+
+    The per-cell device rotation (``dev = idx mod k``; read and update
+    row ``dev`` of the ready table) is a one-hot mask over the
+    PIPE_MAX_K ready rows, so every cell advances with dense tensor ops
+    and no per-cell indexing.  ``idx`` and ``k`` are small exact f32
+    integers, so the float modulo is exact."""
+    kdev, ucie, dev_ui = params[0], params[1], params[2]
+    dev_ready = state[0:PIPE_MAX_K]
+    link_free, idx = state[PIPE_MAX_K], state[PIPE_MAX_K + 1]
+    rep_prev = state[PIPE_MAX_K + 2]
+    rows = torch.arange(PIPE_MAX_K, dtype=torch.float32,
+                        device=params.device)[:, None]
+    for _ in range(chunk):
+        dev = idx - torch.floor(idx / kdev) * kdev
+        sel = rows == dev[None, :]
+        ready = torch.where(sel, dev_ready, 0.0).sum(dim=0)
+        start = torch.maximum(ready, link_free)
+        dev_ready = torch.where(sel, start + dev_ui, dev_ready)
+        link_free = start + ucie
+        idx = idx + 1.0
+
+    kf, Kf, ch = scal[0, 0], scal[0, 1], scal[0, 2]
+    tol, exit_ok, at_hor = scal[0, 3], scal[0, 4], scal[0, 5]
+    n_lines = scal[0, 6]
+    T1 = torch.where(kf == 1.0, link_free, hist[0])
+    ahat = (link_free - T1) / torch.clamp_min((kf - 1.0) * ch, 1.0)
+    rep = n_lines * ucie / torch.clamp_min(
+        link_free + ahat * (Kf - kf) * ch, 1e-9)
+    delta = torch.abs(rep - rep_prev) / torch.clamp_min(torch.abs(rep),
+                                                        1e-9)
+    conv = (((delta <= tol) & (exit_ok > 0.0))
+            | (at_hor > 0.0)).to(torch.float32)
+
+    pad = torch.zeros_like(link_free)
+    return torch.stack(list(dev_ready) + [link_free, idx, rep, conv]
+                       + [pad] * (PIPE_ROWS - PIPE_MAX_K - 4))

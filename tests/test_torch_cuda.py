@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card: each kernel bitwise equal to its
-plain version, the launch counters, and the bridge on the card.  Marked
+plain version, the launch counters, the bridge and the Fig-13 design
+space on the card.  Marked
 ``cuda``: they skip where there is no card (as on a CPU-only machine) and
 run on the card with
 
@@ -15,6 +16,9 @@ import pytest
 import torch
 
 from repro_torch.core import flitsim
+from repro_torch.core.space import ADAPTIVE_SIM, DesignSpace, axis
+from repro_torch.kernels.flit_pack import ops as pack_ops
+from repro_torch.kernels.flit_pack import ref as pack_ref
 from repro_torch.kernels.flit_sim import ops, ref
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -94,3 +98,55 @@ def test_bridge_on_card_meets_golden(dev):
     for key in golden:
         if key != "serving_frontier":
             assert got[key] == golden[key], key
+
+
+def test_pipelining_chunk_equal_plain_over_a_run(dev):
+    params = flitsim._pipe_param_rows(
+        torch.arange(1, 9, device=dev), torch.tensor([8.0, 13.0], device=dev),
+        torch.tensor([16.0, 37.0, 64.0], device=dev))
+    cells = params.shape[1]
+    state = torch.zeros((ref.PIPE_ROWS, cells), device=dev)
+    hist = torch.zeros((ref.ASYM_ROWS, cells), device=dev)
+    ops.reset_launches()
+    for k in range(1, 9):
+        scal = flitsim._scal_row([k, 8, 64, 1e-3, 1.0 if k >= 4 else 0.0,
+                                  1.0 if k >= 8 else 0.0, 512], dev)
+        got = ops.pipelining_chunk(params, state, hist, scal, chunk=64)
+        want = ref.pipelining_chunk_compute(params, state, hist, scal,
+                                            chunk=64)
+        assert torch.equal(got, want), k
+        state = want
+        if k == 1:
+            hist = torch.cat([state[8:9], torch.zeros((7, cells),
+                                                      device=dev)])
+    assert ops.launches["pipelining_chunk"] == 8
+
+
+@pytest.mark.parametrize("n", [1, 15, 64, 1000])
+def test_pack_flits_equal_plain_and_round_trips(dev, n):
+    g = torch.Generator(device=dev).manual_seed(n)
+    f = pack_ref.flits_needed(n)
+    args = [torch.randint(0, 256, shape, generator=g, device=dev,
+                          dtype=torch.int32)
+            for shape in ((n, 64), (f, 10), (f, 4))]
+    pack_ops.reset_launches()
+    got = pack_ops.pack(*args)
+    assert pack_ops.launches["pack_flits"] == 1
+    assert torch.equal(got, pack_ref.pack_flits_ref(*args))
+    lines, headers, meta, ok = pack_ops.unpack(got, n)
+    assert bool(ok.all())
+    for a, b in zip((lines, headers, meta), args):
+        assert torch.equal(a, b)
+
+
+def test_fig13_on_card_matches_cpu(dev):
+    axes = [axis("k", range(1, 9)), axis("ucie_line_ui", (8, 16)),
+            axis("device_line_ui", (16, 32, 64))]
+    ops.reset_launches()
+    card = DesignSpace(axes, sim=ADAPTIVE_SIM, device=dev).evaluate()
+    assert 4 <= ops.launches["pipelining_chunk"] <= 8
+    cpu = DesignSpace(axes, sim=ADAPTIVE_SIM, device="cpu").evaluate()
+    np.testing.assert_allclose(card["utilization"].values,
+                               cpu["utilization"].values, atol=1e-6, rtol=0)
+    assert abs(flitsim.simulate_lpddr6_pipelining(4, device=dev) - 1.0) \
+        <= 1e-3

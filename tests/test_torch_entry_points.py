@@ -1,0 +1,255 @@
+"""The port's explorer ``--sweep`` mode, quickstart and scalar simulators
+against the JAX reference on the CPU.
+
+Tolerances: simulated efficiencies atol 1e-6; regimes (best protocol or
+system per read-fraction run) exactly equal; closed forms rel 1e-6;
+ranking keys equal and in order.  One measured exception, with its
+reason: in the 1640-cell sweep two converged symmetric cells (cxl_unopt
+at backlog 8 and 32) differ from both reference engines by 1.37e-6.
+The schedules are identical (same exit chunk, same stragglers, same
+convergence histogram); the gap is the one the symmetric chunk shows when
+XLA's CPU backend contracts ``TD + t * nd`` into a fused multiply-add
+while the port rounds every operation (1.3e-6, see
+``tests/test_torch_flit_sim_kernels.py``).  So at most 2 cells may exceed
+1e-6, and none 2e-6.  ``test_sweep_exception_is_the_reference_contraction``
+is the witness: replaying the port's sweep with that one update rounded
+once, as a fused multiply-add, gives the reference's value bitwise at
+every cell beyond 1e-6, and an f64 replay of the same schedule is no
+closer to the reference there than to the port."""
+import contextlib
+import importlib.util
+import inspect
+import io
+import pathlib
+import re
+import textwrap
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import ALL_APPROACHES as J_APPROACHES
+from repro.core import HBM4 as J_HBM4
+from repro.core import LPDDR6 as J_LPDDR6
+from repro.core import PAPER_MIXES as J_MIXES
+from repro.core import TrafficMix as JMix
+from repro.core import UCIE_A_32G_55U as J_A55, UCIE_S_32G as J_S32
+from repro.core import best as j_best, latency_speedup as j_speedup
+from repro.core import mix_grid as j_mix_grid, rank as j_rank
+from repro.core import flitsim as jf
+from repro.core import space as j_space
+from repro.core.space import ADAPTIVE_SIM as J_ADAPTIVE
+from repro.core.space import PALLAS_SIM as J_PALLAS
+from repro_torch import explorer, quickstart
+from repro_torch.core import flitsim as tf
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+CPU = "cpu"
+ATOL = 1e-6
+RTOL = 1e-6
+BACKLOGS = (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+@pytest.fixture(scope="module")
+def sweep():
+    return explorer.sweep_mode(device=CPU, verbose=False)
+
+
+def _runs(labels, fracs):
+    """(first, last, label) runs — the reference explorer's regime walk."""
+    out, start = [], 0
+    for j in range(1, len(labels) + 1):
+        if j == len(labels) or labels[j] != labels[start]:
+            out.append((float(fracs[start]), float(fracs[j - 1]),
+                        str(labels[start])))
+            start = j
+    return out
+
+
+def _jax_fracs(n=41):
+    return np.asarray(j_mix_grid(n)[0]) / 100.0
+
+
+@pytest.mark.parametrize("jsim", [J_ADAPTIVE, J_PALLAS],
+                         ids=["xla", "pallas"])
+def test_sweep_matches_reference_design_space(sweep, jsim):
+    fracs = _jax_fracs()
+    np.testing.assert_array_equal(sweep["fracs"], fracs)
+    res = j_space.DesignSpace([
+        j_space.axis("backlog", list(BACKLOGS)),
+        j_space.axis("read_fraction", fracs),
+    ], sim=jsim).evaluate(metrics=("sim_efficiency",))
+    sa = res["sim_efficiency"]
+    eff = np.asarray(sa.values)
+    assert sweep["efficiency"].shape == eff.shape == (5, 8, 41)
+    assert sweep["protocols"] == list(sa.coord("protocol"))
+    diff = np.abs(sweep["efficiency"] - eff)
+    assert int((diff > ATOL).sum()) <= 2, np.argwhere(diff > ATOL)
+    np.testing.assert_allclose(sweep["efficiency"], eff, atol=2e-6, rtol=0)
+    np.testing.assert_allclose(sweep["efficiency"][3:], eff[3:], atol=ATOL,
+                               rtol=0)                      # asymmetric
+    for fam in ("flitsim.symmetric", "flitsim.asymmetric"):
+        got, want = sweep["run_info"][fam], jf.last_run_info()[fam]
+        for key in ("cycles_run", "stragglers", "converged_cycles"):
+            assert got[key] == want[key], (fam, key)
+    b64 = BACKLOGS.index(64)
+    best = np.argmax(eff[:, b64, :], axis=0)
+    assert sweep["regimes"] == _runs([sweep["protocols"][i] for i in best],
+                                     fracs)
+    cres = j_space.DesignSpace([j_space.axis("read_fraction", fracs)]
+                               ).evaluate(metrics=("bandwidth_gbs",))
+    assert sweep["catalog_regimes"] == _runs(
+        list(cres.frontier("bandwidth_gbs").values), fracs)
+
+
+def _sweep_with_chunk(fn, monkeypatch):
+    """The port's CPU sweep with ``symmetric_chunk`` replaced by ``fn``."""
+    from repro_torch.kernels.flit_sim import ops
+    with monkeypatch.context() as m:
+        m.setattr(ops, "symmetric_chunk", fn)
+        # stragglers are escalated on the f32 fixed engine
+        esc = tf._escalate_stragglers
+
+        def escalate(f, rep, conv, args):
+            out = rep.clone()
+            exact = esc(f, rep.float(), conv, args).to(rep.dtype)
+            mask = torch.as_tensor(~conv)
+            out[mask] = exact[mask]
+            return out
+        m.setattr(tf, "_escalate_stragglers", escalate)
+        return explorer.sweep_mode(device=CPU, verbose=False)
+
+
+def test_sweep_exception_is_the_reference_contraction(sweep, monkeypatch):
+    """Every cell where the port and the reference differ by more than
+    1e-6 is explained by the reference's contraction of ``TD + t * nd``:
+    the port's plain chunk with that update rounded once (f64 product and
+    sum, rounded to f32: a fused multiply-add) gives the reference's value
+    bitwise; an f64 replay of the same schedule sides with the port."""
+    from repro_torch.kernels.flit_sim import ref
+    fracs = _jax_fracs()
+    eff = np.asarray(j_space.DesignSpace([
+        j_space.axis("backlog", list(BACKLOGS)),
+        j_space.axis("read_fraction", fracs),
+    ], sim=J_ADAPTIVE).evaluate(metrics=("sim_efficiency",))[
+        "sim_efficiency"].values)
+    port = sweep["efficiency"]
+    beyond = np.abs(port - eff) > ATOL
+
+    src = textwrap.dedent(inspect.getsource(ref.symmetric_chunk_compute))
+    assert src.count("TD = TD + t * nd") == 1
+    scope = dict(vars(ref))
+    exec(src.replace("TD = TD + t * nd", "TD = (TD.double() + t.double() "
+                     "* nd.double()).float()"), scope)
+    fused = _sweep_with_chunk(
+        lambda p, s, h, c, *, chunk: scope["symmetric_chunk_compute"](
+            p, s, h, c, chunk=chunk), monkeypatch)["efficiency"]
+    np.testing.assert_array_equal(fused[beyond], eff[beyond])
+
+    f64 = _sweep_with_chunk(
+        lambda p, s, h, c, *, chunk: ref.symmetric_chunk_compute(
+            p.double(), s.double(), h.double(), c.double(), chunk=chunk),
+        monkeypatch)
+    assert f64["efficiency"].dtype == np.float64
+    assert f64["run_info"]["flitsim.symmetric"]["converged_cycles"] == \
+        sweep["run_info"]["flitsim.symmetric"]["converged_cycles"]
+    exact = f64["efficiency"]
+    assert np.all(np.abs(port - exact)[beyond]
+                  <= np.abs(eff - exact)[beyond])
+
+
+def _regime_lines(text):
+    return re.findall(r"read fraction \d\.\d\d-\d\.\d\d: \S+", text)
+
+
+def test_sweep_prints_the_reference_regimes(sweep):
+    """The regime lines the port prints equal those the reference's
+    ``examples/memsys_explorer.py --sweep`` prints."""
+    spec = importlib.util.spec_from_file_location(
+        "memsys_explorer", ROOT / "examples" / "memsys_explorer.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    want, got = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(want):
+        mod.sweep_mode()
+    with contextlib.redirect_stdout(got):
+        explorer.sweep_mode(device=CPU)
+    lines = _regime_lines(got.getvalue())
+    assert lines == _regime_lines(want.getvalue())
+    assert len(lines) == len(sweep["regimes"]) + len(
+        sweep["catalog_regimes"])
+    assert "kernel launches" in got.getvalue()
+
+
+def test_explorer_cli_sweep(capsys):
+    explorer.main(["--sweep", "--device", CPU])
+    assert "best simulated protocol per read-fraction regime" in \
+        capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        explorer.main(["--sweep", "--bridge", "--device", CPU])
+
+
+@pytest.fixture(scope="module")
+def quick():
+    return quickstart.collect(device=CPU)
+
+
+def test_quickstart_closed_forms(quick):
+    assert quick["mixes"] == [m.name for m in J_MIXES]
+    for key, proto in J_APPROACHES.items():
+        np.testing.assert_allclose(
+            quick["linear_density"][key],
+            [float(proto.bw_density_linear(m.x, m.y, J_A55))
+             for m in J_MIXES], rtol=RTOL)
+        np.testing.assert_allclose(
+            quick["pj_per_bit"][key],
+            [float(proto.power_pj_per_bit(m.x, m.y, J_S32))
+             for m in J_MIXES], rtol=RTOL)
+    np.testing.assert_allclose(
+        list(quick["bus_density"].values()),
+        [J_HBM4.linear_density_gbs_mm, J_LPDDR6.linear_density_gbs_mm],
+        rtol=RTOL)
+    want = j_speedup()
+    assert quick["latency_speedup"].keys() == want.keys()
+    np.testing.assert_allclose(list(quick["latency_speedup"].values()),
+                               list(want.values()), rtol=RTOL)
+
+
+def test_quickstart_simulated_and_ranking(quick):
+    for key, r in quick["sim_vs_analytic"].items():
+        np.testing.assert_allclose(
+            r["analytic"], float(jf.ANALYTIC[key].bw_eff(2, 1)), rtol=RTOL)
+        np.testing.assert_allclose(r["simulated"], jf.SIMULATORS[key](2, 1),
+                                   atol=ATOL, rtol=0)
+    want = j_rank(JMix(2, 1))[:5]
+    assert [r["key"] for r in quick["ranking"]] == [r.key for r in want]
+    np.testing.assert_allclose([r["bandwidth_gbs"] for r in quick["ranking"]],
+                               [r.bandwidth_gbs for r in want], rtol=RTOL)
+    b = j_best(JMix(2, 1), objective="gbs_per_watt")
+    assert quick["best"]["key"] == b.key
+    np.testing.assert_allclose(quick["best"]["gbs_per_watt"],
+                               b.gbs_per_watt, rtol=RTOL)
+
+
+def test_quickstart_main_prints(capsys):
+    quickstart.main(["--device", CPU])
+    out = capsys.readouterr().out
+    assert "paper conclusion check" in out and "A2:lpddr6-native" in out
+
+
+@pytest.mark.parametrize("key", sorted(tf.SIMULATORS))
+def test_simulators_match_reference(key):
+    assert tuple(tf.SIMULATORS) == tuple(jf.SIMULATORS)
+    got = [tf.SIMULATORS[key](x, y, device=CPU)
+           for x, y in tf.CANONICAL_MIXES]
+    want = [jf.SIMULATORS[key](x, y) for x, y in jf.CANONICAL_MIXES]
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=0)
+
+
+def test_scalar_simulators_reject_bad_mixes():
+    with pytest.raises(ValueError, match="invalid traffic mix"):
+        tf.simulate_symmetric(tf.SymmetricFlitParams.chi(), 0.0, 0.0,
+                              device=CPU)
+    with pytest.raises(ValueError, match="invalid traffic mix"):
+        tf.simulate_asymmetric(tf.AsymmetricLaneParams.hbm(), -1.0, 1.0,
+                               device=CPU)

@@ -31,6 +31,8 @@ def test_port_has_modules():
     names = {p.relative_to(PORT).as_posix() for p in PORT_FILES}
     for want in ("core/ucie.py", "core/flitsim.py", "core/space.py",
                  "kernels/flit_sim/ref.py", "kernels/flit_sim/ops.py",
+                 "kernels/flit_pack/ref.py", "kernels/flit_pack/ops.py",
+                 "kernels/flit_pack/kernel.py", "quickstart.py",
                  "explorer.py", "convert.py", "_build.py"):
         assert want in names
 
@@ -61,8 +63,9 @@ def test_import_pulls_in_no_jax():
 
 
 def _entry_points():
-    from repro_torch import explorer
+    from repro_torch import convert, explorer, quickstart
     from repro_torch.core import flitsim, report, selector, space, traffic
+    from repro_torch.kernels.flit_pack import ops as pack_ops
     from repro_torch.roofline import analysis
     return {
         "simulate_grid": lambda: flitsim.simulate_grid(
@@ -78,13 +81,27 @@ def _entry_points():
         "explorer_cli": lambda: explorer.main(["--bridge"]),
         "mix_grid": lambda: traffic.mix_grid(5),
         "rank": lambda: selector.rank(traffic.TrafficMix(2, 1)),
+        "best": lambda: selector.best(traffic.TrafficMix(2, 1)),
+        "sweep_mode": lambda: explorer.sweep_mode(verbose=False),
+        "explorer_cli_sweep": lambda: explorer.main(["--sweep"]),
+        "quickstart": lambda: quickstart.collect(),
+        "quickstart_cli": lambda: quickstart.main([]),
+        "simulate_lpddr6_pipelining":
+            lambda: flitsim.simulate_lpddr6_pipelining(4),
+        "sweep_pipelining": lambda: flitsim._sweep_pipelining_impl((1, 4)),
+        "simulators": lambda: flitsim.SIMULATORS["chi"](2, 1),
+        "pack": lambda: pack_ops.pack(*[
+            convert.byte_rows(np.zeros(shape, np.int32))
+            for shape in ((15, 64), (4, 10), (4, 4))]),
     }
 
 
 @pytest.mark.parametrize("name", sorted([
     "simulate_grid", "sweep", "DesignSpace", "joint_frontier",
     "build_report", "bridge_design_space", "bridge_mode", "explorer_cli",
-    "mix_grid", "rank"]))
+    "mix_grid", "rank", "best", "sweep_mode", "explorer_cli_sweep",
+    "quickstart", "quickstart_cli", "simulate_lpddr6_pipelining",
+    "sweep_pipelining", "simulators", "pack"]))
 def test_entry_points_need_a_card_by_default(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
@@ -131,8 +148,28 @@ def test_cuda_source_constants_match_ref():
     from repro_torch.kernels.flit_sim import ref
     src = (PORT / "csrc" / "flit_sim.cu").read_text()
     for name in ("SYM_ROWS", "ASYM_ROWS", "SYM_PERIODIC_ROWS",
-                 "PERIOD_MAX"):
+                 "PERIOD_MAX", "PIPE_ROWS", "PIPE_MAX_K"):
         assert f"constexpr int {name} = {getattr(ref, name)};" in src
     eps = src.split("constexpr float PERIOD_EPS = ")[1].split("f;")[0]
     assert np.float32(float(eps)) == np.float32(ref.PERIOD_EPS)
     assert np.isclose(ref.DRIFT_SPAN, 3.0) and "(1.0f / 3.0f)" in src
+
+
+def test_flit_pack_source_constants_match_ref():
+    """The packer's CUDA source repeats ref.py's flit layout."""
+    from repro_torch.kernels.flit_pack import ref
+    src = (PORT / "csrc" / "flit_pack.cu").read_text()
+    for name in ("FLIT_BYTES", "DATA_BYTES", "HS_BYTES", "META_BYTES",
+                 "LINE_BYTES"):
+        assert f"constexpr int {name} = {getattr(ref, name)};" in src
+    assert ref.BODY_BYTES == ref.FLIT_BYTES - 2
+    assert "constexpr int BODY_BYTES = DATA_BYTES + HS_BYTES + " \
+        "META_BYTES;" in src
+
+
+def test_build_lists_every_source():
+    from repro_torch import _build
+    assert _build.SOURCES == {"flit_sim": "csrc/flit_sim.cu",
+                              "flit_pack": "csrc/flit_pack.cu"}
+    for rel in _build.SOURCES.values():
+        assert (PORT / rel).is_file()

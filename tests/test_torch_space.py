@@ -103,7 +103,7 @@ def test_axis_validation():
         t_space.AxisSet(t_space.axis("mix", [(1, 1)]),
                         t_space.axis("read_fraction", [0.5]))
     with pytest.raises(NotImplementedError, match="not ported"):
-        t_space.axis("k", [1, 2])
+        t_space.axis("trace", [1, 2])
     with pytest.raises(ValueError, match="OWN_MIX"):
         t_space.DesignSpace([t_space.axis("mix", [t_space.OWN_MIX])],
                             device=CPU)
