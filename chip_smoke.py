@@ -31,6 +31,27 @@ on failure:
    e. the quickstart's values on the card against the CPU;
    f. the Fig 8/9 flit data path: 2^16 lines packed (``pack_flits``) and
       unpacked, every line, header and checksum back;
+   g. LM serving (``flash_attention_fwd``, ``rglru_scan``): the launcher
+      refusing recurrentgemma-2b at its default ``--max-len 128`` (below
+      the window: R4), the launcher
+      with recurrentgemma-2b at full width (8 requests, 4 slots, 16 new
+      tokens, ``--max-len 2048``); an engine run of recurrentgemma-2b with
+      4 prompts of 2100-2400 tokens (``max_len`` 2560, 8 new tokens), where
+      the local window and the ring caches bite; the launcher with
+      smollm-360m at full width; each with the launches asserted (8
+      ``flash_attention_fwd`` and 18 ``rglru_scan`` per recurrentgemma-2b
+      prefill, 32 ``flash_attention_fwd`` per smollm-360m prefill, none per
+      decode step); then both models at full width and reduced depth (3
+      and 2 layers, weights from one seed) on the card against the same
+      model on the CPU, prefill and teacher-forced decode logits within
+      the bf16 tolerance and greedy tokens equal except at near ties;
+
+   The flash-attention kernel and the RG-LRU scan are held against their
+   plain versions in phase 3 to a tolerance (f32: atol 3e-5, rtol 1e-4;
+   bf16: atol 4e-3, rtol 2^-7, about one output ulp; the scan: atol 1e-5, rtol 1e-4, and whether it is bitwise
+   is printed), at ``tests/test_kernels.py``'s shapes and the serving
+   runs' (in bf16 as served, and in f32), with ``scaled_dot_product_attention`` timed beside the
+   attention kernel as the library yardstick (not used by the port);
 
 5. report: one ``{"kernels": [...]}`` line, then the result line.
 """
@@ -49,17 +70,27 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import _build, quickstart  # noqa: E402
+from repro_torch.configs import get as get_config  # noqa: E402
 from repro_torch.core import flitsim  # noqa: E402
 from repro_torch.core.space import ADAPTIVE_SIM, DesignSpace, axis  # noqa: E402
 from repro_torch.explorer import bridge_mode, sweep_mode  # noqa: E402
 from repro_torch.kernels.flit_pack import ops as pack_ops  # noqa: E402
 from repro_torch.kernels.flit_pack import ref as pack_ref  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
+from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.flit_sim import ops, ref  # noqa: E402
+from repro_torch.kernels.rglru_scan import ops as lru_ops  # noqa: E402
+from repro_torch.kernels.rglru_scan import ref as lru_ref  # noqa: E402
+from repro_torch.launch import serve as serve_launcher  # noqa: E402
+from repro_torch.models import build as build_model  # noqa: E402
+from repro_torch.serve import Request, ServingEngine  # noqa: E402
 
 #: published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 #: f32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+#: ... and dense bf16 operations/s of the tensor cores
+PEAK_BF16_OPS_PER_S = 989e12
 #: f32 operations of one cycle of the symmetric step (flitsim
 #: _symmetric_stepfn: adds, multiplies, divisions, min/max, floor)
 SYM_STEP_OPS = 51
@@ -82,7 +113,9 @@ SOURCES = {"symmetric_chunk": "src/repro_torch/csrc/flit_sim.cu",
            "asymmetric_periodic": "src/repro_torch/csrc/flit_sim.cu",
            "symmetric_periodic": "src/repro_torch/csrc/flit_sim.cu",
            "pipelining_chunk": "src/repro_torch/csrc/flit_sim.cu",
-           "pack_flits": "src/repro_torch/csrc/flit_pack.cu"}
+           "pack_flits": "src/repro_torch/csrc/flit_pack.cu",
+           "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
+           "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu"}
 REPLACES = {"symmetric_chunk": "src/repro/kernels/flit_sim/kernel.py:84",
             "asymmetric_periodic":
                 "src/repro/kernels/flit_sim/kernel.py:105",
@@ -90,7 +123,10 @@ REPLACES = {"symmetric_chunk": "src/repro/kernels/flit_sim/kernel.py:84",
                 "src/repro/kernels/flit_sim/kernel.py:127",
             "pipelining_chunk":
                 "src/repro/kernels/flit_sim/kernel.py:152",
-            "pack_flits": "src/repro/kernels/flit_pack/kernel.py:66"}
+            "pack_flits": "src/repro/kernels/flit_pack/kernel.py:66",
+            "flash_attention_fwd":
+                "src/repro/kernels/flash_attention/kernel.py:93",
+            "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:64"}
 #: the Fig-13 design space of the main path (48 cells)
 FIG13_KS = tuple(range(1, 9))
 FIG13_US = (8.0, 16.0)
@@ -211,11 +247,14 @@ def reset_counts() -> None:
     """Every kernel's launch count to 0."""
     ops.reset_launches()
     pack_ops.reset_launches()
+    fa_ops.reset_launches()
+    lru_ops.reset_launches()
 
 
 def read_counts() -> dict:
     """Every kernel's launch count since :func:`reset_counts`."""
-    return {**ops.launches, **pack_ops.launches}
+    return {**ops.launches, **pack_ops.launches, **fa_ops.launches,
+            **lru_ops.launches}
 
 
 def pipe_rows(ks, us, ds) -> torch.Tensor:
@@ -647,6 +686,432 @@ def phase_flit_pack():
     return counts
 
 
+# -- the LM serving slice: flash attention, RG-LRU scan, serving -----------
+
+#: flash-attention cases held against the plain version: tests/test_kernels.py's
+#: shapes (b, k, g, sq, skv, hd, causal, window, q_offset, dtype), then the
+#: serving runs' prefill shapes (the launchers' prompts of 4-11 tokens, a
+#: long prompt), a 512-token smollm-360m prefill and a continuation chunk
+#: (q_offset > 0), each of these in bf16 as served and in f32
+FA_CASES = {
+    "causal 2x2x3 128": (2, 2, 3, 128, 128, 64, True, 0, 0, "f32"),
+    "causal 1x1x1 256 hd128": (1, 1, 1, 256, 256, 128, True, 0, 0, "f32"),
+    "causal 2x2x2 96": (2, 2, 2, 96, 96, 64, True, 0, 0, "f32"),
+    "causal 64 vs 192": (1, 1, 2, 64, 192, 64, True, 0, 128, "f32"),
+    "window 16": (1, 2, 2, 128, 128, 64, True, 16, 0, "f32"),
+    "window 32": (1, 2, 2, 128, 128, 64, True, 32, 0, "f32"),
+    "window 64": (1, 2, 2, 128, 128, 64, True, 64, 0, "f32"),
+    "cross": (2, 1, 1, 64, 160, 64, False, 0, 0, "f32"),
+    "dtype f32": (1, 1, 2, 64, 64, 64, True, 0, 0, "f32"),
+    "dtype bf16": (1, 1, 2, 64, 64, 64, True, 0, 0, "bf16"),
+}
+FA_SERVING = {
+    "recurrentgemma-2b launcher prompt": (1, 1, 10, 7, 7, 256, True, 2048, 0),
+    "smollm-360m launcher prompt": (1, 5, 3, 7, 7, 64, True, 0, 0),
+    "recurrentgemma-2b long prompt": (1, 1, 10, 2304, 2304, 256, True, 2048,
+                                      0),
+    "smollm-360m 512 tokens": (1, 5, 3, 512, 512, 64, True, 0, 0),
+    "recurrentgemma-2b continuation": (1, 1, 10, 256, 2304, 256, True, 2048,
+                                       2048),
+}
+FA_CASES.update({label + ("" if dt == "bf16" else " f32"): case + (dt,)
+                 for dt in ("bf16", "f32")
+                 for label, case in FA_SERVING.items()})
+#: tolerances against the plain version: f32 as tests/test_kernels.py; bf16
+#: one output ulp (both round an f32 result once, and the two f32 results
+#: agree to ~1e-6: atol covers the ulp of 2^-8 below 1, rtol the ulp above)
+FA_TOL = {"f32": (3e-5, 1e-4), "bf16": (4e-3, 2.0 ** -7)}
+#: the bf16 cases timed (with the library yardstick): the path's shape (the
+#: recurrentgemma-2b launcher run, where the launches are read), the largest
+#: (the long-prompt run's) and the other serving shapes
+FA_PATH = "recurrentgemma-2b launcher prompt"
+FA_LARGEST = "recurrentgemma-2b long prompt"
+FA_TIMED = (FA_PATH, "smollm-360m launcher prompt", FA_LARGEST,
+            "smollm-360m 512 tokens")
+#: RG-LRU scan shapes [B, S, C]: recurrentgemma-2b's launcher prompt and
+#: long prompt, and larger; all timed
+LRU_CASES = {"recurrentgemma-2b launcher prompt": (1, 7, 2560),
+             "recurrentgemma-2b long prompt": (1, 2304, 2560),
+             "4 x 4096": (4, 4096, 2560)}
+LRU_PATH = "recurrentgemma-2b launcher prompt"
+LRU_LARGEST = "4 x 4096"
+#: launches per prefill on the serving path (one per attention / recurrent
+#: layer) and per decode step (none: decode attention and the one-step
+#: recurrence are plain PyTorch)
+PER_PREFILL = {"recurrentgemma-2b": {"flash_attention_fwd": 8,
+                                     "rglru_scan": 18},
+               "smollm-360m": {"flash_attention_fwd": 32, "rglru_scan": 0}}
+#: bf16 tolerance of the card-vs-CPU model comparison: TOL_EPS bf16
+#: epsilons (2^-7) of the largest CPU logit (tests/test_torch_models.py)
+BF16_EPS = 2.0 ** -7
+TOL_EPS = 8
+
+
+def fa_inputs(case, gen):
+    b, k, g, sq, skv, hd, _, _, _, dt = case
+    dtype = F32 if dt == "f32" else torch.bfloat16
+    mk = lambda shape: torch.randn(shape, generator=gen, device=DEV).to(dtype)
+    return mk((b, k, g, sq, hd)), mk((b, k, skv, hd)), mk((b, k, skv, hd))
+
+
+def fa_bound(case):
+    """Least time of one flash-attention call: q, k, v read and out
+    written once against QK and PV at 2 operations per multiply-add for
+    every visible (query, key) pair, at the dense bf16 tensor-core rate."""
+    b, k, g, sq, skv, hd, causal, window, off, dt = case
+    size = 4 if dt == "f32" else 2
+    nbytes = size * (2 * b * k * g * sq * hd + 2 * b * k * skv * hd)
+    pairs = int(fa_ref.attention_mask(sq, skv, causal, window, off,
+                                      DEV).sum().item())
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = 4.0 * b * k * g * pairs * hd / PEAK_BF16_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def sdpa_ms(case, q, k, v, reps):
+    """The library yardstick: ``scaled_dot_product_attention`` on the same
+    inputs with K/V expanded to the G heads and the same boolean mask
+    (timed only; the port never calls it)."""
+    b, kh, g, sq, skv, hd, causal, window, off, _ = case
+    qh = q.reshape(b, kh * g, sq, hd)
+    kx = k[:, :, None].expand(b, kh, g, skv, hd).reshape(b, kh * g, skv, hd)
+    vx = v[:, :, None].expand(b, kh, g, skv, hd).reshape(b, kh * g, skv, hd)
+    mask = fa_ref.attention_mask(sq, skv, causal, window, off, DEV)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    want = fa_ref.attention_ref(q, k, v, causal=causal, window=window,
+                                q_offset=off)
+    got = sdpa(qh, kx, vx, attn_mask=mask).reshape(want.shape)
+    close("scaled_dot_product_attention vs plain", got.float().cpu(),
+          want.float().cpu(), 3e-2)
+    return time_ms(lambda: sdpa(qh, kx, vx, attn_mask=mask), reps)
+
+
+def phase_lm_kernels():
+    """flash_attention_fwd and rglru_scan against their plain versions on
+    the card; timings at the serving path's shapes."""
+    gen = torch.Generator(device=DEV).manual_seed(13)
+    records = {"flash_attention_fwd": {}, "rglru_scan": {}}
+    err_all = 0.0
+    for label, case in FA_CASES.items():
+        causal, window, off, dt = case[6:]
+        q, k, v = fa_inputs(case, gen)
+        got = fa_ops.flash_attention(q, k, v, causal, window, off)
+        torch.cuda.synchronize()
+        want = fa_ref.attention_ref(q, k, v, causal=causal, window=window,
+                                    q_offset=off)
+        if got.dtype != q.dtype or got.shape != want.shape:
+            raise AssertionError(f"flash_attention_fwd {label}: dtype or "
+                                 f"shape differs from the plain version")
+        g32, w32 = got.float(), want.float()
+        atol, rtol = FA_TOL[dt]
+        if not torch.isfinite(g32).all() or \
+                not torch.allclose(g32, w32, atol=atol, rtol=rtol):
+            raise AssertionError(f"flash_attention_fwd {label}: differs from "
+                                 f"its plain version beyond atol {atol} "
+                                 f"rtol {rtol} (max |diff| "
+                                 f"{(g32 - w32).abs().max().item()})")
+        err = float((g32 - w32).abs().max().item())
+        err_all = max(err_all, err)
+        rec = dict(case=list(case), max_abs_err=err,
+                   rms_out=float(w32.square().mean().sqrt().item()))
+        if label in FA_TIMED:
+            rec["ms"] = time_ms(lambda: fa_ops.flash_attention(
+                q, k, v, causal, window, off), 20)
+            rec["plain_ms"] = time_ms(lambda: fa_ref.attention_ref(
+                q, k, v, causal=causal, window=window, q_offset=off), 5)
+            rec["library_ms"] = sdpa_ms(case, q, k, v, 20)
+            rec["bound_ms"], rec["bound_by"] = fa_bound(case)
+        records["flash_attention_fwd"][label] = rec
+        log(f"kernel flash_attention_fwd @ {label} {case}: max |diff| vs "
+            f"plain {err:.3g} (atol {atol}, rtol {rtol}; rms of the output "
+            f"{rec['rms_out']:.3g})"
+            + (f"; kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+               f"ms, scaled_dot_product_attention {rec['library_ms']:.4f} "
+               f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+               if "ms" in rec else ""))
+    records["flash_attention_fwd"]["max_abs_err"] = err_all
+
+    err_all, bitwise = 0.0, True
+    for label, shape in LRU_CASES.items():
+        log_a = -torch.rand(shape, generator=gen, device=DEV) * 2.0
+        b = torch.randn(shape, generator=gen, device=DEV)
+        got = lru_ops.lru(log_a, b)
+        torch.cuda.synchronize()
+        want = lru_ref.lru_ref(log_a, b)
+        if not torch.allclose(got, want, atol=1e-5, rtol=1e-4):
+            raise AssertionError(f"rglru_scan {label}: differs from its plain "
+                                 f"version beyond atol 1e-5 rtol 1e-4")
+        err = float((got - want).abs().max().item())
+        same = bool(torch.equal(got, want))
+        err_all, bitwise = max(err_all, err), bitwise and same
+        n = shape[0] * shape[1] * shape[2]
+        t_bytes = 12.0 * n / PEAK_BYTES_PER_S * 1e3
+        t_ops = 3.0 * n / PEAK_F32_OPS_PER_S * 1e3
+        rec = dict(shape=list(shape), max_abs_err=err, bitwise=same,
+                   ms=time_ms(lambda: lru_ops.lru(log_a, b), 20),
+                   plain_ms=time_ms(lambda: lru_ref.lru_ref(log_a, b), 3),
+                   bound_ms=max(t_bytes, t_ops),
+                   bound_by="bytes" if t_bytes >= t_ops else "operations")
+        records["rglru_scan"][label] = rec
+        log(f"kernel rglru_scan @ {label} {shape}: max |diff| vs plain {err} "
+            f"(bitwise equal: {same}); kernel {rec['ms']:.4f} ms, plain "
+            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']})")
+    records["rglru_scan"]["max_abs_err"] = err_all
+    records["rglru_scan"]["bitwise"] = bitwise
+    return records
+
+
+def serving_run(name, fn, arch, n_prefills):
+    """Run ``fn`` with the launch counts at 0 around it; assert the serving
+    path's launches; returns a record with the wall, tokens/s and peak
+    memory."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    done = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: n * n_prefills for k, n in PER_PREFILL[arch].items()}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{name}: launches {got}, want {want} "
+                             f"({n_prefills} prefills, none per decode step)")
+    others = {k: v for k, v in counts.items() if k not in want and v}
+    if others:
+        raise AssertionError(f"{name}: unexpected launches {others}")
+    tokens = sum(len(r.generated) for r in done)
+    log(f"main path: {name}: {len(done)} requests, {tokens} tokens in "
+        f"{wall:.3f} s ({tokens / wall:.1f} tok/s), peak memory "
+        f"{peak:.2f} GiB; launches {got}")
+    return dict(wall_s=wall, tokens=tokens, tok_per_s=tokens / wall,
+                peak_gib=peak, launches=got)
+
+
+def check_requests(name, done, n, new_tokens, vocab):
+    if len(done) != n or any(len(r.generated) != new_tokens
+                             or not all(0 <= t < vocab for t in r.generated)
+                             for r in done):
+        raise AssertionError(f"{name}: want {n} requests of {new_tokens} "
+                             f"tokens in the vocabulary")
+
+
+def phase_serving():
+    """LM serving on the card: the launcher and the engine at full width,
+    with their launches asserted, then full width at reduced depth on the
+    card against the CPU."""
+    runs = {}
+    cfg = get_config("recurrentgemma-2b")
+    try:
+        serve_launcher.main(["--arch", "recurrentgemma-2b"])
+    except ValueError as err:
+        if "max_len=128" not in str(err) or "window=2048" not in str(err):
+            raise
+        log(f"main path: launcher at its default --max-len 128 refuses "
+            f"recurrentgemma-2b (R4): {err}")
+    else:
+        raise AssertionError("the launcher served recurrentgemma-2b with "
+                             "max_len 128 below its window of 2048")
+    argv = ["--arch", "recurrentgemma-2b", "--requests", "8",
+            "--batch-slots", "4", "--max-new-tokens", "16",
+            "--max-len", "2048"]
+    log(f"main path: launcher {' '.join(argv)}")
+    out = {}
+    runs["recurrentgemma-2b launcher"] = serving_run(
+        "recurrentgemma-2b launcher",
+        lambda: out.setdefault("r", serve_launcher.main(argv))["requests"],
+        "recurrentgemma-2b", 8)
+    check_requests("recurrentgemma-2b launcher", out["r"]["requests"], 8, 16,
+                   cfg.vocab_size)
+
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    rng = np.random.default_rng(0)
+    lens = [int(n) for n in rng.integers(2100, 2401, 4)]
+
+    def long_prompts():
+        eng = ServingEngine(model, params, batch_slots=4, max_len=2560,
+                            device=DEV)
+        for i, n in enumerate(lens):
+            eng.submit(Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=8))
+        return eng.run_until_drained()
+    log(f"main path: recurrentgemma-2b engine, prompts of {lens} tokens, "
+        f"max_len 2560")
+    done = []
+    runs["recurrentgemma-2b long prompts"] = serving_run(
+        "recurrentgemma-2b long prompts",
+        lambda: done.extend(long_prompts()) or done, "recurrentgemma-2b", 4)
+    check_requests("recurrentgemma-2b long prompts", done, 4, 8,
+                   cfg.vocab_size)
+    runs["recurrentgemma-2b long prompts"]["prompt_lens"] = lens
+    ring_check(model, params, done)
+    del model, params
+    torch.cuda.empty_cache()
+
+    argv = ["--arch", "smollm-360m"]
+    log(f"main path: launcher {' '.join(argv)}")
+    runs["smollm-360m launcher"] = serving_run(
+        "smollm-360m launcher",
+        lambda: out.setdefault("s", serve_launcher.main(argv))["requests"],
+        "smollm-360m", 8)
+    check_requests("smollm-360m launcher", out["s"]["requests"], 8, 16,
+                   get_config("smollm-360m").vocab_size)
+    torch.cuda.empty_cache()
+
+    runs["card vs CPU"] = {arch: card_vs_cpu(arch, layers)
+                           for arch, layers in (("recurrentgemma-2b", 3),
+                                                ("smollm-360m", 2))}
+    return runs
+
+
+def within(name, got, want) -> float:
+    """Fail unless ``got`` is within TOL_EPS bf16 epsilons of the largest
+    |want|; returns the share of that tolerance used."""
+    got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
+    tol = TOL_EPS * BF16_EPS * float(np.abs(want).max())
+    err = float(np.abs(got - want).max())
+    if not np.all(np.isfinite(got)) or err > tol:
+        raise AssertionError(f"{name}: max |diff| {err} > {tol}")
+    return err / tol
+
+
+def same_token(name, g: int, want) -> bool:
+    """Whether token ``g`` is the greedy token of the logit row ``want``;
+    a disagreement is allowed (False) only where ``g``'s logit is within
+    the tolerance of the top one (a near tie), and fails otherwise."""
+    want = want.float()
+    w = int(torch.argmax(want))
+    if g == w:
+        return True
+    gap = float(want[w] - want[g])
+    if gap > TOL_EPS * BF16_EPS * float(want.abs().max()):
+        raise AssertionError(f"{name}: greedy token {g} != {w}, {gap} "
+                             f"below the top logit")
+    return False
+
+
+def ring_check(model, params, done):
+    """The long-prompt requests again, one at a time: prefill, then the
+    engine's tokens decoded against the ring caches; each greedy token
+    equals the engine's (the engine decoded 4 slots at once) except at a
+    near tie, and the last decode's logits
+    equal a prefill of the prompt and the first 7 tokens (the window of
+    2048 and the ring wrap in both)."""
+    worst, ties = 0.0, []
+    for req in done:
+        toks = torch.as_tensor(np.asarray(req.prompt, np.int64), device=DEV)
+        logits, caches = model.prefill(params, toks[None],
+                                       pad_cache_to=2560)
+        n = toks.shape[0]
+        for j, tok in enumerate(req.generated):
+            if not same_token(f"ring check rid {req.rid} step {j}", tok,
+                              logits[0]):
+                ties.append((req.rid, j))
+            if j == len(req.generated) - 1:
+                break
+            logits, caches = model.decode_step(
+                params, torch.tensor([[tok]], device=DEV), caches,
+                torch.tensor([[n + j]], device=DEV))
+        longer = torch.cat([toks, torch.as_tensor(
+            req.generated[:-1], device=DEV)])[None]
+        want, _ = model.prefill(params, longer)
+        worst = max(worst, within(f"ring check rid {req.rid}", logits, want))
+    log(f"main path: ring check of the long prompts: decode against the "
+        f"ring caches gives the engine's tokens"
+        f"{'' if not ties else f' except near ties at {ties}'} and, after "
+        f"7 tokens, the logits of the longer prefill (worst {worst:.2f} of "
+        f"the tolerance)")
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to(v, dev) for v in tree)
+    return tree.to(dev)
+
+
+def card_vs_cpu(arch, layers):
+    """Full width, ``layers`` layers, weights drawn on the CPU from seed 0
+    and copied to the card: prefill and four teacher-forced decode steps
+    on both devices, for prompts of 40 and 300 tokens."""
+    import dataclasses
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    model = build_model(cfg)
+    cpu_params = model.init(torch.Generator().manual_seed(0))
+    params = _to(cpu_params, DEV)
+    rng = np.random.default_rng(1)
+    worst, ties, steps = 0.0, [], 0
+    t0 = time.perf_counter()
+    for n in (40, 300):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n)))
+        max_len = max(cfg.window, n + 8)
+        lg_c, c_c = model.prefill(cpu_params, toks, pad_cache_to=max_len)
+        lg_g, c_g = model.prefill(params, toks.to(DEV), pad_cache_to=max_len)
+        for step in range(5):
+            name = f"{arch} {layers} layers, prompt {n}, step {step}"
+            worst = max(worst, within(name, lg_g[0], lg_c[0]))
+            if not same_token(name, int(torch.argmax(lg_g[0])), lg_c[0]):
+                ties.append((n, step))
+            steps += 1
+            if step == 4:
+                break
+            tok = torch.argmax(lg_c[0]).reshape(1, 1)
+            pos = torch.tensor([[n + step]])
+            lg_c, c_c = model.decode_step(cpu_params, tok, c_c, pos)
+            lg_g, c_g = model.decode_step(params, tok.to(DEV), c_g,
+                                          pos.to(DEV))
+    wall = time.perf_counter() - t0
+    log(f"main path: {arch} full width, {layers} layers, card vs CPU: "
+        f"{steps} logit rows (prefill + 4 decode steps for prompts of 40 and "
+        f"300 tokens) within {TOL_EPS} bf16 epsilons of the CPU's largest "
+        f"logit (worst {worst:.2f} of the tolerance); greedy tokens equal"
+        f"{'' if not ties else f' except near ties at {ties}'}; {wall:.1f} s")
+    return dict(worst_share_of_tol=worst, near_ties=ties, steps=steps)
+
+
+def lm_kernel_records(lm_records, serving):
+    """The ``{"kernels": [...]}`` entries of the serving slice's kernels:
+    times at the largest shape (and the path's), launches from the
+    recurrentgemma-2b launcher run."""
+    out = []
+    for name, largest, path in (
+            ("flash_attention_fwd", FA_LARGEST, FA_PATH),
+            ("rglru_scan", LRU_LARGEST, LRU_PATH)):
+        rs = lm_records[name]
+        r = rs[largest]
+        out.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name],
+            "launches": serving["recurrentgemma-2b launcher"]["launches"][
+                name],
+            "max_abs_err": rs["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
+            "shape": largest, "path_shape": path,
+            "path_ms": rs[path]["ms"], "path_plain_ms": rs[path]["plain_ms"],
+            "path_bound_ms": rs[path]["bound_ms"],
+            "path_library_ms": rs[path].get("library_ms"),
+            "timed": {label: {k: rec.get(k) for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                for label, rec in rs.items()
+                if isinstance(rec, dict) and "ms" in rec},
+            "launches_per_run": {run: rec["launches"][name]
+                                 for run, rec in serving.items()
+                                 if "launches" in rec},
+        })
+    out[-1]["bitwise"] = lm_records["rglru_scan"]["bitwise"]
+    line = {run: {k: rec[k] for k in ("wall_s", "tokens", "tok_per_s",
+                                      "peak_gib")}
+            for run, rec in serving.items() if "launches" in rec}
+    log(f"serving runs: {json.dumps(line)}")
+    return out
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -660,8 +1125,12 @@ def main() -> None:
     for name, text in _build.BUILD_LOG.items():
         log(f"ptxas [{name}]:\n{text.strip()}")
 
+    torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 is f32
+    torch.backends.cudnn.allow_tf32 = False
     records = phase_kernels()
+    lm_records = phase_lm_kernels()
     counts = phase_main_path()
+    serving = phase_serving()
 
     big = records["2^20 cells"]
     #: the main-path run each kernel's launch count is read from
@@ -686,6 +1155,7 @@ def main() -> None:
             "path_plain_ms": records["path"][name]["plain_ms"],
             "path_bound_ms": records["path"][name]["bound_ms"],
         })
+    kernels += lm_kernel_records(lm_records, serving)
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,15 +3,17 @@
 The reference keeps its flit-simulator state as parameter stacks
 (``SymmetricFlitParams`` / ``AsymmetricLaneParams`` whose fields are
 ``[P]`` arrays) and row-stacked ``[rows, cells]`` kernel operands and
-states, and its flit-packing data path as int32 byte arrays.  These
-helpers turn numpy copies of either (``np.asarray`` of the reference's
-arrays) into the port's tensors on a given device, so a run started in
-one package can continue in the other.
+states, its flit-packing data path as int32 byte arrays, and its LM
+parameters and decode caches as nested dicts whose homogeneous layers are
+stacked along a leading ``[L, ...]`` axis.  These helpers turn numpy
+copies of any of them (``np.asarray`` of the reference's arrays) into the
+port's tensors on a given device, so a run started in one package can
+continue in the other.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Mapping, Union
+from typing import Any, Dict, Mapping, Union
 
 import numpy as np
 import torch
@@ -64,3 +66,53 @@ def byte_rows(a, device=None) -> torch.Tensor:
         raise ValueError("byte array values do not fit int32")
     arr = np.ascontiguousarray(arr, dtype=np.int32)
     return torch.from_numpy(arr.copy()).to(device_mod.resolve(device))
+
+
+def _tree(node, dev: torch.device):
+    """Nested dicts / tuples of arrays -> the same structure of tensors
+    (dtypes kept; bf16 arrives as numpy ``bfloat16`` or f32 and is cast by
+    the caller)."""
+    if isinstance(node, Mapping):
+        return {k: _tree(v, dev) for k, v in node.items()}
+    if isinstance(node, (tuple, list)):
+        return tuple(_tree(v, dev) for v in node)
+    arr = np.asarray(node)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(
+            dev).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(dev)
+
+
+def _unstack(node, i: int):
+    if isinstance(node, Mapping):
+        return {k: _unstack(v, i) for k, v in node.items()}
+    if isinstance(node, (tuple, list)):
+        return tuple(_unstack(v, i) for v in node)
+    return np.asarray(node)[i]
+
+
+def _per_layer(cfg, blocks) -> Dict[str, Any]:
+    """The reference's ``blocks`` (one entry per layer, or one stack of
+    ``[L, ...]`` leaves for a scanned homogeneous model) as one entry per
+    layer."""
+    names = [f"layer_{i:02d}" for i in range(cfg.num_layers)]
+    if set(blocks) == set(names):
+        return dict(blocks)
+    return {name: _unstack(blocks, i) for i, name in enumerate(names)}
+
+
+def model_params(cfg, tree, device=None) -> Dict[str, Any]:
+    """The reference's ``model.init(...)`` parameters (a nested dict of
+    numpy arrays) as the port's: the same leaves, one ``blocks`` entry
+    per layer, on ``device``."""
+    dev = device_mod.resolve(device)
+    out = {k: v for k, v in tree.items() if k != "blocks"}
+    out["blocks"] = _per_layer(cfg, tree["blocks"])
+    return _tree(out, dev)
+
+
+def decode_caches(cfg, tree, device=None) -> Dict[str, Any]:
+    """The reference's decode caches (``prefill`` or ``decode_step``
+    output, numpy arrays) as the port's: one entry per layer, attention
+    caches ``{"k", "v"}`` in bf16, recurrent states ``(h, conv)``."""
+    return _tree(_per_layer(cfg, tree), device_mod.resolve(device))

@@ -1,0 +1,113 @@
+"""Attention: GQA with RoPE, causal / local-window (port of
+:mod:`repro.models.attention`, without sharding: one device needs none).
+
+Two execution paths:
+
+  * prefill — the flash-attention forward
+    (:func:`repro_torch.kernels.flash_attention.ops.flash_attention`) in
+    its ``[B, K, G, S, hd]`` layout: the CUDA kernel on the card, its
+    plain version on the CPU.  The reference computes the same function
+    with its streaming-softmax oracle ``attend_chunked``.
+  * ``attend_decode`` — one new token against a KV cache, plain PyTorch
+    (the reference computes it outside any Pallas kernel too).
+
+Layout: q [B, S, K, G, hd] (H = K*G query heads grouped by KV head),
+k/v [B, S, K, hd].  GQA never materializes repeated KV.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.ref import NEG_INF
+from repro_torch.models.layers import apply_rope, cast, rope_angles
+from repro_torch.models.schema import Leaf
+
+
+def attn_schema(cfg: ModelConfig):
+    d, h, k, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    s = {
+        "wq": Leaf((d, h, hd), ("embed", "heads", "head_dim")),
+        "wk": Leaf((d, k, hd), ("embed", "kv_heads", "head_dim")),
+        "wv": Leaf((d, k, hd), ("embed", "kv_heads", "head_dim")),
+        "wo": Leaf((h, hd, d), ("heads", "head_dim", "embed")),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = Leaf((h, hd), ("heads", "head_dim"), init="zeros")
+        s["bk"] = Leaf((k, hd), ("kv_heads", "head_dim"), init="zeros")
+        s["bv"] = Leaf((k, hd), ("kv_heads", "head_dim"), init="zeros")
+    return s
+
+
+def _project(x, w):
+    """x [B, S, d] bf16, w [d, n, hd] -> [B, S, n, hd] bf16."""
+    d, n, hd = w.shape
+    return torch.matmul(x, cast(w).reshape(d, n * hd)).reshape(
+        x.shape[0], x.shape[1], n, hd)
+
+
+def qkv_project(params, x, cfg: ModelConfig, positions=None,
+                rope_on: bool = True):
+    """x: [B, S, d] -> q [B,S,K,G,hd], k/v [B,S,K,hd]."""
+    h, k, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    g = h // k
+    q = _project(x, params["wq"])
+    kk = _project(x, params["wk"])
+    v = _project(x, params["wv"])
+    if "bq" in params:
+        q = q + cast(params["bq"])
+        kk = kk + cast(params["bk"])
+        v = v + cast(params["bv"])
+    if rope_on and positions is not None:
+        cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+        q = apply_rope(q, cos, sin)
+        kk = apply_rope(kk, cos, sin)
+    return q.reshape(q.shape[0], q.shape[1], k, g, hd), kk, v
+
+
+def out_project(params, o, cfg: ModelConfig):
+    """o: [B, S, K, G, hd] -> [B, S, d]."""
+    b, s, k, g, hd = o.shape
+    w = cast(params["wo"])
+    return torch.matmul(o.reshape(b, s, k * g * hd),
+                        w.reshape(k * g * hd, w.shape[-1]))
+
+
+def attend_prefill(q, k, v, *, causal: bool = True, window: int = 0):
+    """q [B, S, K, G, hd], k/v [B, S, K, hd] -> [B, S, K, G, hd] through
+    the flash-attention wrapper (kernel layout ``[B, K, G, S, hd]``)."""
+    o = fa_ops.flash_attention(q.permute(0, 2, 3, 1, 4).contiguous(),
+                               k.permute(0, 2, 1, 3).contiguous(),
+                               v.permute(0, 2, 1, 3).contiguous(),
+                               causal, window)
+    return o.permute(0, 3, 1, 2, 4)
+
+
+def attend_decode(q, k_cache, v_cache, cache_len=None, valid_mask=None):
+    """One-token attention against a cache.
+
+    q: [B, 1, K, G, hd]; caches: [B, S, K, hd].
+    cache_len: int or [B] — number of valid positions (the new token's
+    K/V must already be written, i.e. cache_len INCLUDES it); OR
+    valid_mask: [B, S] bool (ring buffers / arbitrary validity).
+    Scores and the weighted sum accumulate in f32 from the bf16 operands
+    (the reference's ``preferred_element_type=float32``).
+    """
+    hd = q.shape[-1]
+    s = k_cache.shape[1]
+    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32,
+                                          device=q.device))
+    logits = torch.einsum("bqkgx,bskx->bqkgs", q.float(),
+                          k_cache.float()) * scale
+    if valid_mask is None:
+        pos = torch.arange(s, device=q.device)
+        valid_mask = pos[None, :] < torch.as_tensor(
+            cache_len, device=q.device).reshape(-1, 1)
+    logits = torch.where(valid_mask[:, None, None, None, :], logits,
+                         torch.tensor(NEG_INF, dtype=torch.float32,
+                                      device=q.device))
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bqkgs,bskx->bqkgx", w.to(q.dtype).float(),
+                       v_cache.float())
+    return out.to(q.dtype)

@@ -1,0 +1,174 @@
+"""Decoder-only LM assembly for the dense and hybrid families (port of
+:mod:`repro.models.transformer`).
+
+Every model keeps one parameter dict and one cache per layer
+(``blocks["layer_XX"]``), homogeneous ones too: the reference stacks the
+layers of a homogeneous model along a leading ``[L, ...]`` axis for
+``lax.scan``, and :func:`repro_torch.convert.model_params` unstacks them.
+
+Two modes:
+  prefill — builds per-layer caches, returns last-position logits + caches
+  decode  — one token per sequence against caches (pos may vary per batch)
+
+Decode writes the new token's K/V into the attention caches in place (it
+saves a copy of every cache per step) and returns the caches.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn
+from repro_torch.models import rglru as rglru_mod
+from repro_torch.models.layers import (
+    COMPUTE_DTYPE, embed, embedding_schema, mlp, mlp_schema, rmsnorm,
+    rmsnorm_schema, unembed,
+)
+
+MODES = ("prefill", "decode")
+
+
+# -- schemas -------------------------------------------------------------------
+
+def block_schema(cfg: ModelConfig, kind: str):
+    d = cfg.d_model
+    s: Dict[str, Any] = {"ln1": rmsnorm_schema(d), "ln2": rmsnorm_schema(d)}
+    if kind == "attn":
+        s["attn"] = attn.attn_schema(cfg)
+        s["mlp"] = mlp_schema(cfg)
+    elif kind == "rec":
+        s["rec"] = rglru_mod.rglru_schema(cfg)
+        s["mlp"] = mlp_schema(cfg)
+    else:
+        raise ValueError(kind)
+    return s
+
+
+def model_schema(cfg: ModelConfig):
+    return {
+        "embedding": embedding_schema(cfg),
+        "final_norm": rmsnorm_schema(cfg.d_model),
+        "blocks": {f"layer_{i:02d}": block_schema(cfg, k)
+                   for i, k in enumerate(cfg.layer_kinds())},
+    }
+
+
+# -- per-block apply -----------------------------------------------------------
+
+def _attn_cache_init(cfg: ModelConfig, batch: int, max_len: int, device):
+    length = min(max_len, cfg.window) if cfg.attention == "local" \
+        else max_len
+    shape = (batch, length, cfg.num_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device),
+            "v": torch.zeros(shape, dtype=COMPUTE_DTYPE, device=device)}
+
+
+def _ring_gather(kv, window: int):
+    """kv: [B, S, K, hd] -> ring cache [B, W, K, hd]: slot j holds the
+    newest position p <= S-1 with p % W == j."""
+    s = kv.shape[1]
+    if s <= window:
+        pad = torch.zeros((kv.shape[0], window - s) + tuple(kv.shape[2:]),
+                          dtype=kv.dtype, device=kv.device)
+        return torch.cat([kv, pad], dim=1)
+    j = torch.arange(window, device=kv.device)
+    p = (s - 1) - ((s - 1 - j) % window)
+    return kv[:, p]
+
+
+def attn_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
+               cache=None):
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    window = cfg.window if cfg.attention == "local" else 0
+    q, k, v = attn.qkv_project(lp["attn"], h, cfg, positions=positions)
+
+    if mode == "decode":
+        b = x.shape[0]
+        pos = positions[:, 0]                              # [B]
+        rows = torch.arange(b, device=x.device)
+        kc, vc = cache["k"], cache["v"]
+        if window > 0:
+            slot = pos % window
+            kc[rows, slot] = k[:, 0]
+            vc[rows, slot] = v[:, 0]
+            j = torch.arange(kc.shape[1], device=x.device)
+            valid = (j[None, :] <= pos[:, None]) | \
+                (pos[:, None] >= window - 1)
+            o = attn.attend_decode(q, kc, vc, valid_mask=valid)
+        else:
+            kc[rows, pos] = k[:, 0]
+            vc[rows, pos] = v[:, 0]
+            o = attn.attend_decode(q, kc, vc, cache_len=pos + 1)
+        new_cache = {"k": kc, "v": vc}
+    else:
+        o = attn.attend_prefill(q, k, v, causal=True, window=window)
+        if window > 0:
+            new_cache = {"k": _ring_gather(k, window),
+                         "v": _ring_gather(v, window)}
+        else:
+            new_cache = {"k": k, "v": v}
+
+    x = x + attn.out_project(lp["attn"], o, cfg)
+    h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    return x + mlp(lp["mlp"], h2, cfg), new_cache
+
+
+def rec_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
+              cache=None):
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    o, new_state = rglru_mod.rglru_block(lp["rec"], h, cfg, state=cache,
+                                         decode=(mode == "decode"))
+    x = x + o
+    h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    return x + mlp(lp["mlp"], h2, cfg), new_state
+
+
+_BLOCK_FNS = {"attn": attn_block, "rec": rec_block}
+
+
+def _cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
+                device):
+    if kind == "attn":
+        return _attn_cache_init(cfg, batch, max_len, device)
+    if kind == "rec":
+        return rglru_mod.init_state(cfg, batch, device)
+    raise ValueError(kind)
+
+
+# -- model forward --------------------------------------------------------------
+
+def forward(params, tokens, cfg: ModelConfig, *, mode: str, caches=None,
+            positions=None):
+    """Shared forward.  Returns (logits, caches).
+
+    prefill: tokens [B, S] -> (last_logits [B, V], caches)
+    decode:  tokens [B, 1], positions [B, 1] = current absolute position
+             per sequence -> (logits [B, V], caches)
+    """
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} not in {MODES}")
+    x = embed(params["embedding"], tokens)
+    s = x.shape[1]
+    if positions is None:
+        positions = torch.arange(s, device=x.device)[None, :]
+
+    new_caches = {}
+    for i, kind in enumerate(cfg.layer_kinds()):
+        name = f"layer_{i:02d}"
+        x, new_caches[name] = _BLOCK_FNS[kind](
+            params["blocks"][name], x, cfg, mode=mode, positions=positions,
+            cache=caches[name] if mode == "decode" else None)
+
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    if mode == "prefill":
+        x = x[:, -1:, :]
+    return unembed(params["embedding"], x, cfg)[:, 0], new_caches
+
+
+def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int, device):
+    """Zero caches of every layer for ``batch`` sequences of up to
+    ``max_len`` positions."""
+    return {f"layer_{i:02d}": _cache_init(cfg, k, batch, max_len, device)
+            for i, k in enumerate(cfg.layer_kinds())}

@@ -1,6 +1,9 @@
-"""The port's CUDA kernels on the card: each kernel bitwise equal to its
-plain version, the launch counters, the bridge and the Fig-13 design
-space on the card.  Marked
+"""The port's CUDA kernels on the card: each flit kernel bitwise equal to
+its plain version, the flash-attention kernel within tolerance of its
+plain version (f32: atol 3e-5, rtol 1e-4; bf16: one output ulp, atol
+4e-3, rtol 2^-7)
+and the RG-LRU scan bitwise, the launch counters, the bridge, the Fig-13
+design space and reduced LM serving on the card.  Marked
 ``cuda``: they skip where there is no card (as on a CPU-only machine) and
 run on the card with
 
@@ -15,11 +18,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get
 from repro_torch.core import flitsim
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.core.space import ADAPTIVE_SIM, DesignSpace, axis
 from repro_torch.kernels.flit_pack import ops as pack_ops
 from repro_torch.kernels.flit_pack import ref as pack_ref
 from repro_torch.kernels.flit_sim import ops, ref
+from repro_torch.kernels.rglru_scan import ops as lru_ops
+from repro_torch.kernels.rglru_scan import ref as lru_ref
+from repro_torch.models import build
+from repro_torch.serve import Request, ServingEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 pytestmark = pytest.mark.cuda
@@ -150,3 +160,78 @@ def test_fig13_on_card_matches_cpu(dev):
                                cpu["utilization"].values, atol=1e-6, rtol=0)
     assert abs(flitsim.simulate_lpddr6_pipelining(4, device=dev) - 1.0) \
         <= 1e-3
+
+
+@pytest.mark.parametrize("b,k,g,sq,skv,hd,causal,window,off,dtype", [
+    (2, 2, 3, 128, 128, 64, True, 0, 0, torch.float32),
+    (1, 1, 2, 64, 192, 64, True, 0, 128, torch.float32),
+    (1, 2, 2, 128, 128, 64, True, 16, 0, torch.float32),
+    (2, 1, 1, 64, 160, 64, False, 0, 0, torch.float32),
+    (1, 2, 2, 100, 300, 16, True, 0, 200, torch.float32),
+    (1, 1, 10, 300, 300, 256, True, 64, 0, torch.bfloat16),
+    (1, 5, 3, 77, 77, 64, True, 0, 0, torch.bfloat16),
+    (1, 1, 4, 33, 97, 96, True, 40, 64, torch.bfloat16),
+])
+def test_flash_attention_close_to_plain(dev, b, k, g, sq, skv, hd, causal,
+                                        window, off, dtype):
+    gen = torch.Generator(device=dev).manual_seed(sq + skv + hd)
+    q, kk, v = [torch.randn(s, generator=gen, device=dev).to(dtype)
+                for s in ((b, k, g, sq, hd), (b, k, skv, hd),
+                          (b, k, skv, hd))]
+    fa_ops.reset_launches()
+    got = fa_ops.flash_attention(q, kk, v, causal, window, off)
+    assert fa_ops.launches["flash_attention_fwd"] == 1
+    want = fa_ref.attention_ref(q, kk, v, causal=causal, window=window,
+                                q_offset=off)
+    assert got.dtype == dtype
+    tol = dict(atol=3e-5, rtol=1e-4) if dtype == torch.float32 else \
+        dict(atol=4e-3, rtol=2.0 ** -7)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+
+
+@pytest.mark.parametrize("shape", [(1, 2304, 2560), (3, 77, 40), (2, 1, 8)])
+def test_rglru_scan_equal_plain(dev, shape):
+    gen = torch.Generator(device=dev).manual_seed(shape[1])
+    log_a = -torch.rand(shape, generator=gen, device=dev) * 2.0
+    b = torch.randn(shape, generator=gen, device=dev)
+    lru_ops.reset_launches()
+    got = lru_ops.lru(log_a, b)
+    assert lru_ops.launches["rglru_scan"] == 1
+    assert torch.equal(got, lru_ref.lru_ref(log_a, b))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "smollm-360m"])
+def test_reduced_serving_on_card(dev, arch):
+    """The reduced model from the same weights: its prefill logits on the
+    card within 8 bf16 epsilons (2^-7) of the largest CPU logit, the
+    tolerance of tests/test_torch_models.py; served on the card, one kernel
+    launch per attention / recurrent layer and prefill, none per decode
+    step."""
+    cfg = get(arch).reduced()
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    card_params = _to(params, dev)
+    toks = torch.as_tensor((np.arange(70) * 7) % 200)[None]
+    want, _ = model.prefill(params, toks)
+    got, _ = model.prefill(card_params, toks.to(dev))
+    tol = 8 * 2.0 ** -7 * want.float().abs().max().item()
+    torch.testing.assert_close(got.float().cpu(), want.float(), atol=tol,
+                               rtol=0)
+    eng = ServingEngine(model, card_params, batch_slots=2, max_len=96,
+                        device=dev)
+    for i, n in enumerate((5, 40, 70)):
+        eng.submit(Request(rid=i, prompt=(np.arange(n) * 7) % 200,
+                           max_new_tokens=4))
+    fa_ops.reset_launches()
+    lru_ops.reset_launches()
+    done = eng.run_until_drained()
+    assert [len(r.generated) for r in done] == [4, 4, 4]
+    kinds = cfg.layer_kinds()
+    assert fa_ops.launches["flash_attention_fwd"] == 3 * kinds.count("attn")
+    assert lru_ops.launches["rglru_scan"] == 3 * kinds.count("rec")
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

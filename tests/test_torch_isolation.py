@@ -33,7 +33,18 @@ def test_port_has_modules():
                  "kernels/flit_sim/ref.py", "kernels/flit_sim/ops.py",
                  "kernels/flit_pack/ref.py", "kernels/flit_pack/ops.py",
                  "kernels/flit_pack/kernel.py", "quickstart.py",
-                 "explorer.py", "convert.py", "_build.py"):
+                 "explorer.py", "convert.py", "_build.py",
+                 "configs/base.py", "configs/registry.py",
+                 "configs/recurrentgemma_2b.py", "configs/smollm_360m.py",
+                 "models/schema.py", "models/layers.py",
+                 "models/attention.py", "models/rglru.py",
+                 "models/transformer.py", "models/model.py",
+                 "kernels/flash_attention/ref.py",
+                 "kernels/flash_attention/kernel.py",
+                 "kernels/flash_attention/ops.py",
+                 "kernels/rglru_scan/ref.py", "kernels/rglru_scan/kernel.py",
+                 "kernels/rglru_scan/ops.py", "serve/engine.py",
+                 "launch/serve.py", "launch/profile_serve.py"):
         assert want in names
 
 
@@ -65,8 +76,13 @@ def test_import_pulls_in_no_jax():
 def _entry_points():
     from repro_torch import convert, explorer, quickstart
     from repro_torch.core import flitsim, report, selector, space, traffic
+    from repro_torch.configs import get
     from repro_torch.kernels.flit_pack import ops as pack_ops
+    from repro_torch.launch import profile_serve, serve
+    from repro_torch.models import build
     from repro_torch.roofline import analysis
+    from repro_torch.serve import ServingEngine
+    small = build(get("smollm-360m").reduced())
     return {
         "simulate_grid": lambda: flitsim.simulate_grid(
             ["chi"], [1.0], [1.0], [4.0]),
@@ -93,6 +109,13 @@ def _entry_points():
         "pack": lambda: pack_ops.pack(*[
             convert.byte_rows(np.zeros(shape, np.int32))
             for shape in ((15, 64), (4, 10), (4, 4))]),
+        "model_params": lambda: convert.model_params(
+            small.cfg, {"blocks": {}}),
+        "serving_engine": lambda: ServingEngine(small, {}, max_len=32),
+        "serve_cli": lambda: serve.main(["--arch", "smollm-360m",
+                                         "--reduced"]),
+        "profile_serve": lambda: profile_serve.main(["--arch",
+                                                     "smollm-360m"]),
     }
 
 
@@ -101,7 +124,8 @@ def _entry_points():
     "build_report", "bridge_design_space", "bridge_mode", "explorer_cli",
     "mix_grid", "rank", "best", "sweep_mode", "explorer_cli_sweep",
     "quickstart", "quickstart_cli", "simulate_lpddr6_pipelining",
-    "sweep_pipelining", "simulators", "pack"]))
+    "sweep_pipelining", "simulators", "pack", "model_params",
+    "serving_engine", "serve_cli", "profile_serve"]))
 def test_entry_points_need_a_card_by_default(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
@@ -167,9 +191,22 @@ def test_flit_pack_source_constants_match_ref():
         "META_BYTES;" in src
 
 
+def test_flash_attention_source_constants_match_ref():
+    """The attention kernel's CUDA source repeats ref.py's mask value and
+    head-dim limit."""
+    from repro_torch.kernels.flash_attention import ref
+    src = (PORT / "csrc" / "flash_attention.cu").read_text()
+    assert f"constexpr int MAX_HEAD_DIM = {ref.MAX_HEAD_DIM};" in src
+    neg = src.split("constexpr float NEG_INF = ")[1].split("f;")[0]
+    assert float(neg) == ref.NEG_INF
+    assert "fmaxf(l[p], 1e-30f)" in src
+
+
 def test_build_lists_every_source():
     from repro_torch import _build
     assert _build.SOURCES == {"flit_sim": "csrc/flit_sim.cu",
-                              "flit_pack": "csrc/flit_pack.cu"}
+                              "flit_pack": "csrc/flit_pack.cu",
+                              "flash_attention": "csrc/flash_attention.cu",
+                              "rglru_scan": "csrc/rglru_scan.cu"}
     for rel in _build.SOURCES.values():
         assert (PORT / rel).is_file()
