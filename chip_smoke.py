@@ -41,20 +41,40 @@ on failure:
       smollm-360m at full width; each with the launches asserted (8
       ``flash_attention_fwd`` and 18 ``rglru_scan`` per recurrentgemma-2b
       prefill, 32 ``flash_attention_fwd`` per smollm-360m prefill, none per
-      decode step); then both models at full width and reduced depth (3
-      and 2 layers, weights from one seed) on the card against the same
-      model on the CPU, prefill and teacher-forced decode logits within
-      the bf16 tolerance and greedy tokens equal except at near ties;
+      decode step); mamba2-2.7b at full width and depth (64 layers,
+      2,832,074,240 parameters; ``ssd_scan``): the launcher (8 requests,
+      4 slots, 16 new tokens, ``--max-len 128``) and an engine run with 4
+      prompts of 2000-2400 tokens, at least two not a multiple of the
+      256-step chunk (``max_len`` 2560, 8 new tokens), 64 ``ssd_scan``
+      launches per prefill and none per decode step; the long-prompt runs
+      decoded again one request at a time against a longer prefill
+      (greedy tokens equal except at near ties; the logits within the bf16
+      bound, mamba2-2.7b's 64 layers within 1e-3 of the largest logit in
+      f32 compute, its bf16 share reported); then
+      the three models at full width and reduced depth (3, 2 and 2
+      layers, weights from one seed) on the card against the same model
+      on the CPU, prompts of 40 and 300 tokens, prefill and teacher-forced
+      decode logits within the bf16 tolerance and greedy tokens equal
+      except at near ties;
 
-   The flash-attention kernel and the RG-LRU scan are held against their
-   plain versions in phase 3 to a tolerance (f32: atol 3e-5, rtol 1e-4;
-   bf16: atol 4e-3, rtol 2^-7, about one output ulp; the scan: atol 1e-5, rtol 1e-4, and whether it is bitwise
-   is printed), at ``tests/test_kernels.py``'s shapes and the serving
-   runs' (in bf16 as served, and in f32), with ``scaled_dot_product_attention`` timed beside the
-   attention kernel as the library yardstick (not used by the port);
+   The flash-attention kernel, the RG-LRU scan and the SSD scan are held
+   against their plain versions in phase 3 to a tolerance (f32: atol
+   3e-5, rtol 1e-4; bf16: atol 4e-3, rtol 2^-7, about one output ulp; the
+   RG-LRU scan: atol 1e-5, rtol 1e-4, and whether it is bitwise is
+   printed; the SSD scan: atol 5e-5, rtol 1e-4 at ``tests/test_kernels.py``'s
+   shapes, 1e-4 of the largest |y| and |state| at mamba2-2.7b's), at
+   ``tests/test_kernels.py``'s shapes and the serving runs' (attention in
+   bf16 as served, and in f32; the SSD scan against its chunked form
+   everywhere and the sequential oracle at the test shapes, the launcher
+   prompt and a ragged 2100 steps; some cases with step sizes as trained
+   Mamba2 has them, so the state carried from chunk to chunk counts, and
+   some from a given initial state), with ``scaled_dot_product_attention``
+   timed beside the attention kernel as the library yardstick (not used
+   by the port);
 
 5. report: one ``{"kernels": [...]}`` line, then the result line.
 """
+import contextlib
 import importlib.util
 import json
 import statistics
@@ -81,8 +101,12 @@ from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.flit_sim import ops, ref  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as lru_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan import ref as lru_ref  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ref as ssd_ref  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models import build as build_model  # noqa: E402
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.serve import Request, ServingEngine  # noqa: E402
 
 #: published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
@@ -115,7 +139,8 @@ SOURCES = {"symmetric_chunk": "src/repro_torch/csrc/flit_sim.cu",
            "pipelining_chunk": "src/repro_torch/csrc/flit_sim.cu",
            "pack_flits": "src/repro_torch/csrc/flit_pack.cu",
            "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
-           "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu"}
+           "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu",
+           "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu"}
 REPLACES = {"symmetric_chunk": "src/repro/kernels/flit_sim/kernel.py:84",
             "asymmetric_periodic":
                 "src/repro/kernels/flit_sim/kernel.py:105",
@@ -126,7 +151,8 @@ REPLACES = {"symmetric_chunk": "src/repro/kernels/flit_sim/kernel.py:84",
             "pack_flits": "src/repro/kernels/flit_pack/kernel.py:66",
             "flash_attention_fwd":
                 "src/repro/kernels/flash_attention/kernel.py:93",
-            "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:64"}
+            "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:64",
+            "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:81"}
 #: the Fig-13 design space of the main path (48 cells)
 FIG13_KS = tuple(range(1, 9))
 FIG13_US = (8.0, 16.0)
@@ -249,12 +275,13 @@ def reset_counts() -> None:
     pack_ops.reset_launches()
     fa_ops.reset_launches()
     lru_ops.reset_launches()
+    ssd_ops.reset_launches()
 
 
 def read_counts() -> dict:
     """Every kernel's launch count since :func:`reset_counts`."""
     return {**ops.launches, **pack_ops.launches, **fa_ops.launches,
-            **lru_ops.launches}
+            **lru_ops.launches, **ssd_ops.launches}
 
 
 def pipe_rows(ks, us, ds) -> torch.Tensor:
@@ -739,12 +766,21 @@ LRU_LARGEST = "4 x 4096"
 #: layer) and per decode step (none: decode attention and the one-step
 #: recurrence are plain PyTorch)
 PER_PREFILL = {"recurrentgemma-2b": {"flash_attention_fwd": 8,
-                                     "rglru_scan": 18},
-               "smollm-360m": {"flash_attention_fwd": 32, "rglru_scan": 0}}
+                                     "rglru_scan": 18, "ssd_scan": 0},
+               "smollm-360m": {"flash_attention_fwd": 32, "rglru_scan": 0,
+                               "ssd_scan": 0},
+               "mamba2-2.7b": {"flash_attention_fwd": 0, "rglru_scan": 0,
+                               "ssd_scan": 64}}
 #: bf16 tolerance of the card-vs-CPU model comparison: TOL_EPS bf16
 #: epsilons (2^-7) of the largest CPU logit (tests/test_torch_models.py)
 BF16_EPS = 2.0 ** -7
 TOL_EPS = 8
+#: the decode check of mamba2-2.7b's long prompts in f32 compute, relative
+#: to the largest logit: 64 bf16 layers carry the rounding of two
+#: computation orders (prefill + decode against one longer prefill) past
+#: the bf16 bound, f32 compute does not; a fault in the carried states
+#: would move the logits by their own size
+F32_REL = 1e-3
 
 
 def fa_inputs(case, gen):
@@ -862,6 +898,153 @@ def phase_lm_kernels():
     return records
 
 
+#: SSD scan cases (B, S, H, P, N, chunk of the plain chunked form):
+#: tests/test_kernels.py's four shapes, then mamba2-2.7b's (80 heads, P 64,
+#: N 128, chunk 256): the launcher prompt, a 2048-token prefill, a ragged
+#: 2100 tokens and four rows of 2048; then slow-decay and initial-state
+#: variants (SSD_SLOW, SSD_INIT)
+SSD_CASES = {"test 2x64x4 P16 N8": (2, 64, 4, 16, 8, 16),
+             "test 1x128x2 P32 N16": (1, 128, 2, 32, 16, 32),
+             "test 2x96x3 P16 N8": (2, 96, 3, 16, 8, 32),
+             "test 1x64x1 P64 N32": (1, 64, 1, 64, 32, 64),
+             "mamba2-2.7b launcher prompt": (1, 7, 80, 64, 128, 256),
+             "mamba2-2.7b 2048 tokens": (1, 2048, 80, 64, 128, 256),
+             "mamba2-2.7b ragged 2100 tokens": (1, 2100, 80, 64, 128, 256),
+             "4 x 2048": (4, 2048, 80, 64, 128, 256),
+             "test 2x96x3 P16 N8 slow": (2, 96, 3, 16, 8, 32),
+             "test 2x64x4 P16 N8 slow init": (2, 64, 4, 16, 8, 16),
+             "mamba2-2.7b launcher prompt init": (1, 7, 80, 64, 128, 256),
+             "mamba2-2.7b 2048 tokens slow": (1, 2048, 80, 64, 128, 256),
+             "mamba2-2.7b ragged 2100 tokens slow":
+                 (1, 2100, 80, 64, 128, 256),
+             "mamba2-2.7b ragged 2100 tokens slow init":
+                 (1, 2100, 80, 64, 128, 256)}
+#: cases with dt = softplus(N(0, 1) + SSD_SLOW_DT), about 0.011, as trained
+#: Mamba2 step sizes are, so a 64-step chunk decays by about 0.5 and the
+#: state carried from chunk to chunk counts (with dt = softplus(N(0, 1)) a
+#: chunk hands on about exp(-51) of it) ...
+SSD_SLOW = tuple(k for k in SSD_CASES if " slow" in k)
+SSD_SLOW_DT = -5.0
+#: ... and with a random initial state (a continued prefill)
+SSD_INIT = tuple(k for k in SSD_CASES if k.endswith(" init"))
+#: held to the reference's own tolerance (tests/test_kernels.py) ...
+SSD_TOL = (5e-5, 1e-4)
+#: ... the full-width shapes to a bound relative to the largest |y| (and
+#: |final state|), written down before the first run: the reference's rtol
+SSD_REL = 1e-4
+#: also held against the sequential oracle ssd_ref (every case is held
+#: against ssd_chunked)
+SSD_ORACLE = tuple(k for k in SSD_CASES
+                   if k.startswith("test") or "launcher" in k
+                   or "ragged" in k)
+SSD_PATH = "mamba2-2.7b launcher prompt"
+SSD_LARGEST = "4 x 2048"
+SSD_TIMED = (SSD_PATH, "mamba2-2.7b 2048 tokens",
+             "mamba2-2.7b ragged 2100 tokens", SSD_LARGEST)
+
+
+def ssd_ops_per_step(s, h, p, n):
+    """The fewest f32 operations per step and head that the SSD function
+    needs, whatever the kernel's own chunk: the smaller of the
+    recurrence's 5 N P (state = a state + dt x B^T: a product and an FMA
+    per element; y = state C: an FMA) and the chunked form at its best
+    chunk Q, (Q + 1) (P + N / H) + 4 N P + 2 N P / Q (the lower triangles
+    of C B^T, shared by the H heads of one group, and of M x; the chunk's
+    states and C state^T; the recurrence over chunk states).  Elementwise
+    terms of order P + N are left out.  At mamba2-2.7b's P 64, N 128,
+    H 80: 40,960 against 34,907 at Q = 16."""
+    chunked = min((q + 1) * (p + n / h) + 4 * n * p + 2 * n * p / q
+                  for q in range(1, max(s, 1) + 1))
+    return min(5.0 * n * p, chunked)
+
+
+def ssd_bound(case):
+    """Least time of one SSD scan: x, dt, b, c, a_log read and y and the
+    final state written once, against :func:`ssd_ops_per_step` operations
+    per step and head at the f32 rate."""
+    bsz, s, h, p, n, _ = case
+    nbytes = 4.0 * (2 * bsz * s * h * p + bsz * s * h + 2 * bsz * s * n + h
+                    + bsz * h * p * n)
+    return bound_ms(nbytes, bsz * h * s * ssd_ops_per_step(s, h, p, n))
+
+
+def ssd_inputs(case, gen, slow=False, init=False):
+    """x, dt, b, c, a_log and the initial state (None unless ``init``)."""
+    bsz, s, h, p, n, _ = case
+    rn = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
+    dt = torch.nn.functional.softplus(rn(bsz, s, h)
+                                      + (SSD_SLOW_DT if slow else 0.0))
+    return (rn(bsz, s, h, p), dt, rn(bsz, s, n) * 0.5, rn(bsz, s, n) * 0.5,
+            rn(h) * 0.3, rn(bsz, h, p, n) if init else None)
+
+
+def phase_ssd_kernel():
+    """ssd_scan against its plain versions on the card (the chunked form
+    at every case, the sequential oracle at the test shapes, the launcher
+    prompt and the ragged 2100 steps; slow-decay and initial-state cases
+    among them); timings at the serving shapes."""
+    gen = torch.Generator(device=DEV).manual_seed(14)
+    records, err_all = {}, 0.0
+    for label, case in SSD_CASES.items():
+        x, dt, b, c, a_log, s0 = ssd_inputs(case, gen, label in SSD_SLOW,
+                                            label in SSD_INIT)
+        chunk = min(case[5], case[1])
+        y, fs = ssd_ops.ssd(x, dt, b, c, a_log, chunk, init_state=s0)
+        torch.cuda.synchronize()
+        plains = {"ssd_chunked": lambda: ssd_chunked(
+            x, dt, b[:, :, None], c[:, :, None], a_log, chunk,
+            init_state=s0)}
+        if label in SSD_ORACLE:
+            plains["ssd_ref"] = lambda: ssd_ref.ssd_ref(x, dt, b, c, a_log,
+                                                        init_state=s0)
+        test = label.startswith("test")
+        # the mean decay over one of the kernel's 64-step chunks
+        a = torch.exp(a_log) * dt[:, :min(64, case[1])].sum(1)
+        rec = dict(case=list(case), max_abs_err=0.0,
+                   chunk_decay=float(torch.exp(-a).mean().item()),
+                   max_abs_y=float(y.abs().max().item()),
+                   max_abs_state=float(fs.abs().max().item()))
+        for pname, plain in plains.items():
+            wy, wfs = plain()
+            for what, got, want in (("y", y, wy), ("state", fs, wfs)):
+                err = float((got - want).abs().max().item())
+                if test:
+                    atol, rtol = SSD_TOL
+                    ok = torch.allclose(got, want, atol=atol, rtol=rtol)
+                    limit = f"atol {atol} rtol {rtol}"
+                else:
+                    bound = SSD_REL * float(want.abs().max().item())
+                    ok = err <= bound
+                    limit = f"{SSD_REL} of max |{what}| = {bound:.3g}"
+                if not ok or not torch.isfinite(got).all():
+                    raise AssertionError(
+                        f"ssd_scan {label}: {what} differs from {pname} "
+                        f"beyond {limit} (max |diff| {err})")
+                rec[f"err_{what}_vs_{pname}"] = err
+                rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        err_all = max(err_all, rec["max_abs_err"])
+        if label in SSD_TIMED:
+            rec["ms"] = time_ms(lambda: ssd_ops.ssd(x, dt, b, c, a_log,
+                                                    chunk), 20)
+            rec["plain_ms"] = time_ms(plains["ssd_chunked"], 3)
+            if "ssd_ref" in plains:
+                rec["oracle_ms"] = time_ms(plains["ssd_ref"], 1)
+            rec["bound_ms"], rec["bound_by"] = ssd_bound(case)
+        records[label] = rec
+        errs = {k: f"{v:.3g}" for k, v in rec.items() if k.startswith("err_")}
+        log(f"kernel ssd_scan @ {label} {case}: max |diff| {errs} (max |y| "
+            f"{rec['max_abs_y']:.3g}, max |state| {rec['max_abs_state']:.3g}"
+            f", mean decay of a 64-step chunk {rec['chunk_decay']:.3g})"
+            + (f"; kernel {rec['ms']:.4f} ms, plain ssd_chunked "
+               f"{rec['plain_ms']:.4f} ms"
+               + (f", ssd_ref {rec['oracle_ms']:.2f} ms"
+                  if "oracle_ms" in rec else "")
+               + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+               if "ms" in rec else ""))
+    records["max_abs_err"] = err_all
+    return records
+
+
 def serving_run(name, fn, arch, n_prefills):
     """Run ``fn`` with the launch counts at 0 around it; assert the serving
     path's launches; returns a record with the wall, tokens/s and peak
@@ -948,7 +1131,8 @@ def phase_serving():
     check_requests("recurrentgemma-2b long prompts", done, 4, 8,
                    cfg.vocab_size)
     runs["recurrentgemma-2b long prompts"]["prompt_lens"] = lens
-    ring_check(model, params, done)
+    decode_check("recurrentgemma-2b long prompts", "the ring caches", model,
+                 params, done)
     del model, params
     torch.cuda.empty_cache()
 
@@ -962,21 +1146,102 @@ def phase_serving():
                    get_config("smollm-360m").vocab_size)
     torch.cuda.empty_cache()
 
+    runs.update(phase_ssm_serving())
     runs["card vs CPU"] = {arch: card_vs_cpu(arch, layers)
                            for arch, layers in (("recurrentgemma-2b", 3),
-                                                ("smollm-360m", 2))}
+                                                ("smollm-360m", 2),
+                                                ("mamba2-2.7b", 2))}
     return runs
 
 
-def within(name, got, want) -> float:
-    """Fail unless ``got`` is within TOL_EPS bf16 epsilons of the largest
-    |want|; returns the share of that tolerance used."""
+def phase_ssm_serving():
+    """mamba2-2.7b at full width and depth: the launcher's traffic and an
+    engine run with long prompts, at least two of them ragged (not a
+    multiple of the 256-step chunk: the reference's fault R6), each with
+    its ``ssd_scan`` launches asserted (64 per prefill, none per tick)."""
+    arch = "mamba2-2.7b"
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    if cfg.num_layers != 64 or model.param_count() != 2_832_074_240:
+        raise AssertionError(f"{arch}: {cfg.num_layers} layers, "
+                             f"{model.param_count():,} parameters")
+    runs, out = {}, {}
+    argv = ["--arch", arch, "--requests", "8", "--batch-slots", "4",
+            "--max-new-tokens", "16", "--max-len", "128"]
+    log(f"main path: launcher {' '.join(argv)}")
+    runs["mamba2-2.7b launcher"] = serving_run(
+        "mamba2-2.7b launcher",
+        lambda: out.setdefault("m", serve_launcher.main(argv))["requests"],
+        arch, 8)
+    check_requests("mamba2-2.7b launcher", out["m"]["requests"], 8, 16,
+                   cfg.vocab_size)
+    runs["mamba2-2.7b launcher"]["launcher_s"] = out["m"]["seconds"]
+    del out
+    torch.cuda.empty_cache()
+
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    rng = np.random.default_rng(0)
+    lens = [int(n) for n in rng.integers(2000, 2401, 4)]
+    if sum(n % 256 != 0 for n in lens) < 2:
+        raise AssertionError(f"want two ragged prompts, got {lens}")
+
+    def long_prompts():
+        eng = ServingEngine(model, params, batch_slots=4, max_len=2560,
+                            device=DEV)
+        for i, n in enumerate(lens):
+            eng.submit(Request(rid=i, prompt=rng.integers(
+                0, cfg.vocab_size, n).astype(np.int32), max_new_tokens=8))
+        return eng.run_until_drained()
+    log(f"main path: mamba2-2.7b engine, prompts of {lens} tokens, "
+        f"max_len 2560")
+    done = []
+    runs["mamba2-2.7b long prompts"] = serving_run(
+        "mamba2-2.7b long prompts", lambda: done.extend(long_prompts())
+        or done, arch, 4)
+    check_requests("mamba2-2.7b long prompts", done, 4, 8, cfg.vocab_size)
+    runs["mamba2-2.7b long prompts"]["prompt_lens"] = lens
+    runs["mamba2-2.7b long prompts"]["decode_check"] = decode_check(
+        "mamba2-2.7b long prompts", "the SSM states", model, params, done,
+        deep=True)
+    del model, params
+    torch.cuda.empty_cache()
+    return runs
+
+
+def real_vocab(name, logits, vocab: int):
+    """The columns of the real vocabulary; fails unless the padding
+    columns (a vocabulary that is not a multiple of 256, as mamba2-2.7b's
+    50280) hold the model's mask value -1e9 exactly, so that they take no
+    part in the tolerances below."""
+    pad = logits[..., vocab:]
+    mask = torch.tensor(-1e9, dtype=logits.dtype, device=logits.device)
+    if pad.numel() and not bool(torch.all(pad == mask)):
+        raise AssertionError(f"{name}: padding logits are not -1e9")
+    return logits[..., :vocab]
+
+
+def within(name, got, want, rel=TOL_EPS * BF16_EPS, hold=True) -> float:
+    """Fail unless ``got`` is within ``rel`` (TOL_EPS bf16 epsilons) of
+    the largest |want|; returns the share of that tolerance used (only
+    reported, not held, with ``hold=False``)."""
     got, want = got.float().cpu().numpy(), want.float().cpu().numpy()
-    tol = TOL_EPS * BF16_EPS * float(np.abs(want).max())
+    tol = rel * float(np.abs(want).max())
     err = float(np.abs(got - want).max())
-    if not np.all(np.isfinite(got)) or err > tol:
+    if not np.all(np.isfinite(got)) or (hold and err > tol):
         raise AssertionError(f"{name}: max |diff| {err} > {tol}")
     return err / tol
+
+
+@contextlib.contextmanager
+def compute_dtype(dtype):
+    """The port's models compute on ``dtype`` operands inside the block
+    (``models.layers.COMPUTE_DTYPE``, bf16 as served)."""
+    served = model_layers.COMPUTE_DTYPE
+    model_layers.COMPUTE_DTYPE = dtype
+    try:
+        yield
+    finally:
+        model_layers.COMPUTE_DTYPE = served
 
 
 def same_token(name, g: int, want) -> bool:
@@ -994,37 +1259,68 @@ def same_token(name, g: int, want) -> bool:
     return False
 
 
-def ring_check(model, params, done):
+def decode_check(name, caches_are, model, params, done, deep=False):
     """The long-prompt requests again, one at a time: prefill, then the
-    engine's tokens decoded against the ring caches; each greedy token
-    equals the engine's (the engine decoded 4 slots at once) except at a
-    near tie, and the last decode's logits
-    equal a prefill of the prompt and the first 7 tokens (the window of
-    2048 and the ring wrap in both)."""
-    worst, ties = 0.0, []
-    for req in done:
+    engine's tokens decoded against the caches; each greedy token equals
+    the engine's (the engine decoded 4 slots at once) except at a near
+    tie, and the last decode's logits equal a prefill of the prompt and the
+    first 7 tokens (recurrentgemma-2b: the window of 2048 and the ring
+    wrap in both; mamba2-2.7b: ragged prefills, decode steps carrying the
+    SSM states).  Returns the worst share of each tolerance used.
+
+    With ``deep`` (mamba2-2.7b's 64 layers) the bf16 logits' share of the
+    bf16 bound is reported, not held: 64 bf16 layers carry the rounding of
+    the two computation orders past it (the reference's own bf16 states
+    move 9 epsilons from its f32 ones at two reduced layers,
+    ``tests/test_torch_models.py``).  The logits are held instead with the
+    model computing in f32, at ``F32_REL`` of the largest logit."""
+    vocab = model.cfg.vocab_size
+
+    def replay(req, ties=None):
         toks = torch.as_tensor(np.asarray(req.prompt, np.int64), device=DEV)
         logits, caches = model.prefill(params, toks[None],
                                        pad_cache_to=2560)
         n = toks.shape[0]
-        for j, tok in enumerate(req.generated):
-            if not same_token(f"ring check rid {req.rid} step {j}", tok,
-                              logits[0]):
-                ties.append((req.rid, j))
-            if j == len(req.generated) - 1:
-                break
+        for j, tok in enumerate(req.generated[:-1]):
+            if ties is not None:
+                what = f"{name} check rid {req.rid} step {j}"
+                if not same_token(what, tok,
+                                  real_vocab(what, logits[0], vocab)):
+                    ties.append((req.rid, j))
             logits, caches = model.decode_step(
                 params, torch.tensor([[tok]], device=DEV), caches,
                 torch.tensor([[n + j]], device=DEV))
+        if ties is not None:
+            what = f"{name} check rid {req.rid} last step"
+            if not same_token(what, req.generated[-1],
+                              real_vocab(what, logits[0], vocab)):
+                ties.append((req.rid, len(req.generated) - 1))
         longer = torch.cat([toks, torch.as_tensor(
             req.generated[:-1], device=DEV)])[None]
         want, _ = model.prefill(params, longer)
-        worst = max(worst, within(f"ring check rid {req.rid}", logits, want))
-    log(f"main path: ring check of the long prompts: decode against the "
-        f"ring caches gives the engine's tokens"
+        what = f"{name} check rid {req.rid}"
+        return (what, real_vocab(what, logits, vocab),
+                real_vocab(what, want, vocab))
+
+    ties, out = [], {"bf16": 0.0}
+    for req in done:
+        out["bf16"] = max(out["bf16"], within(*replay(req, ties),
+                                              hold=not deep))
+    if deep:
+        out["f32"] = 0.0
+        with compute_dtype(torch.float32):
+            for req in done:
+                out["f32"] = max(out["f32"], within(*replay(req),
+                                                    rel=F32_REL))
+    log(f"main path: {name}: decode against {caches_are} gives the "
+        f"engine's tokens"
         f"{'' if not ties else f' except near ties at {ties}'} and, after "
-        f"7 tokens, the logits of the longer prefill (worst {worst:.2f} of "
-        f"the tolerance)")
+        f"7 tokens, the logits of the longer prefill: worst "
+        f"{out['bf16']:.2f} of the bf16 bound ({TOL_EPS} epsilons"
+        + ("; reported, not held)" if deep else ")")
+        + (f", in f32 compute worst {out['f32']:.3f} of {F32_REL} of the "
+           f"largest logit" if deep else ""))
+    return out
 
 
 def _to(tree, dev):
@@ -1054,8 +1350,10 @@ def card_vs_cpu(arch, layers):
         lg_g, c_g = model.prefill(params, toks.to(DEV), pad_cache_to=max_len)
         for step in range(5):
             name = f"{arch} {layers} layers, prompt {n}, step {step}"
-            worst = max(worst, within(name, lg_g[0], lg_c[0]))
-            if not same_token(name, int(torch.argmax(lg_g[0])), lg_c[0]):
+            row_g = real_vocab(name, lg_g[0], cfg.vocab_size)
+            row_c = real_vocab(name, lg_c[0], cfg.vocab_size)
+            worst = max(worst, within(name, row_g, row_c))
+            if not same_token(name, int(torch.argmax(row_g)), row_c):
                 ties.append((n, step))
             steps += 1
             if step == 4:
@@ -1075,20 +1373,22 @@ def card_vs_cpu(arch, layers):
 
 
 def lm_kernel_records(lm_records, serving):
-    """The ``{"kernels": [...]}`` entries of the serving slice's kernels:
+    """The ``{"kernels": [...]}`` entries of the serving slices' kernels:
     times at the largest shape (and the path's), launches from the
-    recurrentgemma-2b launcher run."""
+    launcher run of the model whose prefill runs them."""
     out = []
-    for name, largest, path in (
-            ("flash_attention_fwd", FA_LARGEST, FA_PATH),
-            ("rglru_scan", LRU_LARGEST, LRU_PATH)):
+    for name, largest, path, run in (
+            ("flash_attention_fwd", FA_LARGEST, FA_PATH,
+             "recurrentgemma-2b launcher"),
+            ("rglru_scan", LRU_LARGEST, LRU_PATH,
+             "recurrentgemma-2b launcher"),
+            ("ssd_scan", SSD_LARGEST, SSD_PATH, "mamba2-2.7b launcher")):
         rs = lm_records[name]
         r = rs[largest]
         out.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": serving["recurrentgemma-2b launcher"]["launches"][
-                name],
+            "launches": serving[run]["launches"][name], "launches_from": run,
             "max_abs_err": rs["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r.get("library_ms"),
@@ -1097,16 +1397,17 @@ def lm_kernel_records(lm_records, serving):
             "path_bound_ms": rs[path]["bound_ms"],
             "path_library_ms": rs[path].get("library_ms"),
             "timed": {label: {k: rec.get(k) for k in (
-                "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}
+                "ms", "plain_ms", "oracle_ms", "bound_ms", "bound_by",
+                "library_ms") if k in rec}
                 for label, rec in rs.items()
                 if isinstance(rec, dict) and "ms" in rec},
-            "launches_per_run": {run: rec["launches"][name]
-                                 for run, rec in serving.items()
+            "launches_per_run": {label: rec["launches"][name]
+                                 for label, rec in serving.items()
                                  if "launches" in rec},
         })
-    out[-1]["bitwise"] = lm_records["rglru_scan"]["bitwise"]
+    out[1]["bitwise"] = lm_records["rglru_scan"]["bitwise"]
     line = {run: {k: rec[k] for k in ("wall_s", "tokens", "tok_per_s",
-                                      "peak_gib")}
+                                      "peak_gib", "launcher_s") if k in rec}
             for run, rec in serving.items() if "launches" in rec}
     log(f"serving runs: {json.dumps(line)}")
     return out
@@ -1129,6 +1430,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     records = phase_kernels()
     lm_records = phase_lm_kernels()
+    lm_records["ssd_scan"] = phase_ssd_kernel()
     counts = phase_main_path()
     serving = phase_serving()
 

@@ -25,7 +25,8 @@ BUILD_DIR = PACKAGE_DIR.parents[1] / "build" / "repro_torch"
 SOURCES: Dict[str, str] = {"flit_sim": "csrc/flit_sim.cu",
                             "flit_pack": "csrc/flit_pack.cu",
                             "flash_attention": "csrc/flash_attention.cu",
-                            "rglru_scan": "csrc/rglru_scan.cu"}
+                            "rglru_scan": "csrc/rglru_scan.cu",
+                            "ssd_scan": "csrc/ssd_scan.cu"}
 
 #: exact f32 semantics: no FMA contraction, IEEE division (no fast math)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -93,10 +93,10 @@ def _unstack(node, i: int):
 
 def _per_layer(cfg, blocks) -> Dict[str, Any]:
     """The reference's ``blocks`` (one entry per layer, or one stack of
-    ``[L, ...]`` leaves for a scanned homogeneous model) as one entry per
-    layer."""
+    ``[L, ...]`` leaves for a scanned homogeneous model, which for ssm
+    decode caches is a ``(conv, ssm)`` tuple) as one entry per layer."""
     names = [f"layer_{i:02d}" for i in range(cfg.num_layers)]
-    if set(blocks) == set(names):
+    if isinstance(blocks, Mapping) and set(blocks) == set(names):
         return dict(blocks)
     return {name: _unstack(blocks, i) for i, name in enumerate(names)}
 
@@ -114,5 +114,6 @@ def model_params(cfg, tree, device=None) -> Dict[str, Any]:
 def decode_caches(cfg, tree, device=None) -> Dict[str, Any]:
     """The reference's decode caches (``prefill`` or ``decode_step``
     output, numpy arrays) as the port's: one entry per layer, attention
-    caches ``{"k", "v"}`` in bf16, recurrent states ``(h, conv)``."""
+    caches ``{"k", "v"}`` in bf16, recurrent states ``(h, conv)``, ssm
+    states ``(conv, ssm)``."""
     return _tree(_per_layer(cfg, tree), device_mod.resolve(device))

@@ -5,15 +5,18 @@ kind.
 
 ``python -m repro_torch.launch.profile_serve --arch recurrentgemma-2b``
 
-Kinds: ``flash_attention_fwd`` and ``rglru_scan`` (this repo's kernels),
-``matmul`` (cuBLAS), ``cast/copy`` (PyTorch's copy kernels: the f32 ->
-bf16 casts of the weights at every call, the K/V layout copies and the
-cache splices) and ``other`` (elementwise, reductions, softmax,
-indexing).  Each phase reports two walls: one without the profiler (the
-phase's own cost; the profiler slows the host) and one of the profiled
-run itself; ``idle`` is the share of the profiled run's wall in which no
-kernel ran, so kernel time and wall come from the same run (the idle
-share without the profiler is lower).  A fixed batch of ``SLOTS`` slots
+``python -m repro_torch.launch.profile_serve --arch mamba2-2.7b
+--prompt-lens 10,2048``
+
+Kinds: ``flash_attention_fwd``, ``rglru_scan`` and ``ssd_scan`` (this
+repo's kernels), ``matmul`` (cuBLAS), ``cast/copy`` (PyTorch's copy
+kernels: the f32 -> bf16 casts of the weights at every call, the K/V
+layout copies and the cache splices) and ``other`` (elementwise,
+reductions, softmax, indexing).  Each phase reports two walls: one
+without the profiler (the phase's own cost; the profiler slows the host)
+and one of the profiled run itself; ``idle`` is the share of the
+profiled run's wall in which no kernel ran, so kernel time and wall come
+from the same run (the idle share without the profiler is lower).  A fixed batch of ``SLOTS`` slots
 and ``TICKS`` decode ticks, weights and prompts drawn from ``SEED``.
 Needs the card: device times are not measured on the CPU.
 """
@@ -25,8 +28,8 @@ from typing import Dict, Optional, Sequence
 
 import torch
 
-KINDS = ("flash_attention_fwd", "rglru_scan", "matmul", "cast/copy",
-         "other")
+KINDS = ("flash_attention_fwd", "rglru_scan", "ssd_scan", "matmul",
+         "cast/copy", "other")
 SLOTS = 4
 TICKS = 4
 SEED = 0
@@ -38,6 +41,8 @@ def kind_of(kernel_name: str) -> str:
         return "flash_attention_fwd"
     if "rglru_scan_kernel" in name:
         return "rglru_scan"
+    if "ssd_scan_kernel" in name:
+        return "ssd_scan"
     if any(s in name for s in ("gemm", "xmma", "nvjet", "cutlass",
                                "cublas")):
         return "matmul"

@@ -1,3 +1,3 @@
-"""The LM substrate's models: dense and hybrid (RG-LRU + local attention)
-decoders."""
+"""The LM substrate's models: dense, hybrid (RG-LRU + local attention) and
+ssm (Mamba2) decoders."""
 from repro_torch.models.model import Model, build

@@ -1,5 +1,5 @@
 """Public model API: ``build(cfg) -> Model`` with init / prefill / decode
-(port of :mod:`repro.models.model`, dense and hybrid families only)."""
+(port of :mod:`repro.models.model`: the dense, hybrid and ssm families)."""
 from __future__ import annotations
 
 import dataclasses
@@ -12,7 +12,7 @@ from repro_torch.models import schema as schema_mod
 from repro_torch.models import transformer as tf_mod
 
 #: families the port runs
-FAMILIES = ("dense", "hybrid")
+FAMILIES = ("dense", "hybrid", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,6 +74,6 @@ def build(cfg: ModelConfig) -> Model:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family (frontend "
             f"{cfg.frontend!r}) is not ported yet; the port runs the "
-            f"dense and hybrid families (ROADMAP.md queue 1 item 10; ssm "
-            f"is queue 2's ssd_scan slice)")
+            f"dense, hybrid and ssm families (ROADMAP.md queue 1 item 10: "
+            f"moe, encdec and vision are still to be ported)")
     return Model(cfg)

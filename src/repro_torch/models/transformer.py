@@ -1,4 +1,4 @@
-"""Decoder-only LM assembly for the dense and hybrid families (port of
+"""Decoder-only LM assembly for the dense, hybrid and ssm families (port of
 :mod:`repro.models.transformer`).
 
 Every model keeps one parameter dict and one cache per layer
@@ -22,6 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     COMPUTE_DTYPE, embed, embedding_schema, mlp, mlp_schema, rmsnorm,
     rmsnorm_schema, unembed,
@@ -41,6 +42,8 @@ def block_schema(cfg: ModelConfig, kind: str):
     elif kind == "rec":
         s["rec"] = rglru_mod.rglru_schema(cfg)
         s["mlp"] = mlp_schema(cfg)
+    elif kind == "ssm":
+        s = {"ln1": rmsnorm_schema(d), "ssm": ssm_mod.ssm_schema(cfg)}
     else:
         raise ValueError(kind)
     return s
@@ -125,7 +128,15 @@ def rec_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
     return x + mlp(lp["mlp"], h2, cfg), new_state
 
 
-_BLOCK_FNS = {"attn": attn_block, "rec": rec_block}
+def ssm_block_apply(lp, x, cfg: ModelConfig, *, mode: str, positions,
+                    cache=None):
+    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    o, new_state = ssm_mod.ssm_block(lp["ssm"], h, cfg, state=cache,
+                                     decode=(mode == "decode"))
+    return x + o, new_state
+
+
+_BLOCK_FNS = {"attn": attn_block, "rec": rec_block, "ssm": ssm_block_apply}
 
 
 def _cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
@@ -134,6 +145,8 @@ def _cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
         return _attn_cache_init(cfg, batch, max_len, device)
     if kind == "rec":
         return rglru_mod.init_state(cfg, batch, device)
+    if kind == "ssm":
+        return ssm_mod.init_state(cfg, batch, device)
     raise ValueError(kind)
 
 

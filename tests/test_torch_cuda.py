@@ -1,9 +1,10 @@
 """The port's CUDA kernels on the card: each flit kernel bitwise equal to
 its plain version, the flash-attention kernel within tolerance of its
 plain version (f32: atol 3e-5, rtol 1e-4; bf16: one output ulp, atol
-4e-3, rtol 2^-7)
-and the RG-LRU scan bitwise, the launch counters, the bridge, the Fig-13
-design space and reduced LM serving on the card.  Marked
+4e-3, rtol 2^-7),
+the RG-LRU scan bitwise and the SSD scan within the reference's
+tolerance (atol 5e-5, rtol 1e-4), the launch counters, the bridge, the
+Fig-13 design space and reduced LM serving on the card.  Marked
 ``cuda``: they skip where there is no card (as on a CPU-only machine) and
 run on the card with
 
@@ -28,6 +29,9 @@ from repro_torch.kernels.flit_pack import ref as pack_ref
 from repro_torch.kernels.flit_sim import ops, ref
 from repro_torch.kernels.rglru_scan import ops as lru_ops
 from repro_torch.kernels.rglru_scan import ref as lru_ref
+from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan import ref as ssd_ref
+from repro_torch.models.ssm import ssd_chunked
 from repro_torch.models import build
 from repro_torch.serve import Request, ServingEngine
 
@@ -200,7 +204,63 @@ def test_rglru_scan_equal_plain(dev, shape):
     assert torch.equal(got, lru_ref.lru_ref(log_a, b))
 
 
-@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "smollm-360m"])
+@pytest.mark.parametrize("bsz,s,h,p,n,chunk", [
+    (2, 64, 4, 16, 8, 16), (1, 128, 2, 32, 16, 32), (2, 96, 3, 16, 8, 32),
+    (1, 64, 1, 64, 32, 64), (1, 7, 80, 64, 128, 256),
+    (1, 300, 8, 64, 128, 256), (2, 100, 3, 80, 16, 32)])
+def test_ssd_scan_close_to_plain(dev, bsz, s, h, p, n, chunk):
+    """tests/test_kernels.py's shapes, mamba2-2.7b's launcher prompt, a
+    ragged 300 steps and a P that is not a multiple of the kernel's
+    64-column tile, against both plain versions at the reference's atol
+    5e-5 / rtol 1e-4."""
+    gen = torch.Generator(device=dev).manual_seed(s + h)
+    x = torch.randn((bsz, s, h, p), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((bsz, s, h), generator=gen, device=dev))
+    b = torch.randn((bsz, s, n), generator=gen, device=dev) * 0.5
+    c = torch.randn((bsz, s, n), generator=gen, device=dev) * 0.5
+    a_log = torch.randn((h,), generator=gen, device=dev) * 0.3
+    ssd_ops.reset_launches()
+    y, fs = ssd_ops.ssd(x, dt, b, c, a_log, chunk)
+    assert ssd_ops.launches["ssd_scan"] == 1
+    for want in (ssd_ref.ssd_ref(x, dt, b, c, a_log),
+                 ssd_chunked(x, dt, b[:, :, None], c[:, :, None], a_log,
+                             min(chunk, s))):
+        torch.testing.assert_close(y, want[0], atol=5e-5, rtol=1e-4)
+        torch.testing.assert_close(fs, want[1], atol=5e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("bsz,s,h,p,n,init", [
+    (2, 96, 3, 16, 8, False), (2, 96, 3, 16, 8, True),
+    (1, 7, 80, 64, 128, True), (1, 300, 8, 64, 128, False),
+    (1, 300, 8, 64, 128, True)])
+def test_ssd_scan_slow_decay_and_initial_state_close_to_plain(
+        dev, bsz, s, h, p, n, init):
+    """dt = softplus(N(0, 1) - 5), about 0.011, so the kernel's 64-step
+    chunk decays by about 0.5 and the state it carries to the next chunk
+    counts; with and without a given initial state; against both plain
+    versions at the reference's atol 5e-5 / rtol 1e-4."""
+    gen = torch.Generator(device=dev).manual_seed(s + h + 1)
+    x = torch.randn((bsz, s, h, p), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((bsz, s, h), generator=gen, device=dev) - 5.0)
+    b = torch.randn((bsz, s, n), generator=gen, device=dev) * 0.5
+    c = torch.randn((bsz, s, n), generator=gen, device=dev) * 0.5
+    a_log = torch.randn((h,), generator=gen, device=dev) * 0.3
+    s0 = (torch.randn((bsz, h, p, n), generator=gen, device=dev)
+          if init else None)
+    ssd_ops.reset_launches()
+    y, fs = ssd_ops.ssd(x, dt, b, c, a_log, 64, init_state=s0)
+    assert ssd_ops.launches["ssd_scan"] == 1
+    for want in (ssd_ref.ssd_ref(x, dt, b, c, a_log, init_state=s0),
+                 ssd_chunked(x, dt, b[:, :, None], c[:, :, None], a_log,
+                             min(64, s), init_state=s0)):
+        torch.testing.assert_close(y, want[0], atol=5e-5, rtol=1e-4)
+        torch.testing.assert_close(fs, want[1], atol=5e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "smollm-360m",
+                                  "mamba2-2.7b"])
 def test_reduced_serving_on_card(dev, arch):
     """The reduced model from the same weights: its prefill logits on the
     card within 8 bf16 epsilons (2^-7) of the largest CPU logit, the
@@ -224,11 +284,13 @@ def test_reduced_serving_on_card(dev, arch):
                            max_new_tokens=4))
     fa_ops.reset_launches()
     lru_ops.reset_launches()
+    ssd_ops.reset_launches()
     done = eng.run_until_drained()
     assert [len(r.generated) for r in done] == [4, 4, 4]
     kinds = cfg.layer_kinds()
     assert fa_ops.launches["flash_attention_fwd"] == 3 * kinds.count("attn")
     assert lru_ops.launches["rglru_scan"] == 3 * kinds.count("rec")
+    assert ssd_ops.launches["ssd_scan"] == 3 * kinds.count("ssm")
 
 
 def _to(tree, dev):

@@ -44,7 +44,10 @@ def test_port_has_modules():
                  "kernels/flash_attention/ops.py",
                  "kernels/rglru_scan/ref.py", "kernels/rglru_scan/kernel.py",
                  "kernels/rglru_scan/ops.py", "serve/engine.py",
-                 "launch/serve.py", "launch/profile_serve.py"):
+                 "launch/serve.py", "launch/profile_serve.py",
+                 "configs/mamba2_2_7b.py", "models/ssm.py",
+                 "kernels/ssd_scan/ref.py", "kernels/ssd_scan/kernel.py",
+                 "kernels/ssd_scan/ops.py"):
         assert want in names
 
 
@@ -114,6 +117,8 @@ def _entry_points():
         "serving_engine": lambda: ServingEngine(small, {}, max_len=32),
         "serve_cli": lambda: serve.main(["--arch", "smollm-360m",
                                          "--reduced"]),
+        "serve_cli_ssm": lambda: serve.main(["--arch", "mamba2-2.7b",
+                                             "--reduced"]),
         "profile_serve": lambda: profile_serve.main(["--arch",
                                                      "smollm-360m"]),
     }
@@ -125,7 +130,7 @@ def _entry_points():
     "mix_grid", "rank", "best", "sweep_mode", "explorer_cli_sweep",
     "quickstart", "quickstart_cli", "simulate_lpddr6_pipelining",
     "sweep_pipelining", "simulators", "pack", "model_params",
-    "serving_engine", "serve_cli", "profile_serve"]))
+    "serving_engine", "serve_cli", "serve_cli_ssm", "profile_serve"]))
 def test_entry_points_need_a_card_by_default(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
@@ -207,6 +212,7 @@ def test_build_lists_every_source():
     assert _build.SOURCES == {"flit_sim": "csrc/flit_sim.cu",
                               "flit_pack": "csrc/flit_pack.cu",
                               "flash_attention": "csrc/flash_attention.cu",
-                              "rglru_scan": "csrc/rglru_scan.cu"}
+                              "rglru_scan": "csrc/rglru_scan.cu",
+                              "ssd_scan": "csrc/ssd_scan.cu"}
     for rel in _build.SOURCES.values():
         assert (PORT / rel).is_file()

@@ -1,8 +1,15 @@
 """The port's LM substrate (configs, schema, layers, attention, RG-LRU
-block, transformer, model) on the CPU against the JAX reference, for
-``recurrentgemma-2b.reduced()`` (hybrid: rec, rec, attn with a local
-window of 32) and ``smollm-360m.reduced()`` (dense GQA), with the
+block, Mamba2 block, transformer, model) on the CPU against the JAX
+reference, for ``recurrentgemma-2b.reduced()`` (hybrid: rec, rec, attn
+with a local window of 32), ``smollm-360m.reduced()`` (dense GQA) and
+``mamba2-2.7b.reduced()`` (ssm: 2 layers, 8 SSD heads, chunk 8), with the
 reference's parameters carried across by ``convert.model_params``.
+
+The reference's mamba2 cannot prefill a prompt longer than its chunk
+whose length is not a multiple of it (ROADMAP.md queue 3, R6), so its
+prefill comparisons use lengths it takes, and the R6 test holds the
+port's ragged prefill against the reference's prefill of a whole number
+of chunks followed by teacher-forced decode steps.
 
 Tolerance (bf16): both packages compute on bf16 operands, but XLA's CPU
 backend keeps excess f32 precision inside fused elementwise chains where
@@ -24,28 +31,34 @@ import torch
 from repro.configs import get as ref_get
 from repro.models import ShardingCtx
 from repro.models import build as ref_build
+from repro.models import layers as ref_layers
 from repro_torch import convert
 from repro_torch.configs import arch_ids, get
 from repro_torch.models import build
+from repro_torch.models import layers as port_layers
 from repro_torch.models.schema import leaves
 
 CTX = ShardingCtx()
 BF16_EPS = 2.0 ** -7
 TOL_EPS = 8
+#: f32 compute in both packages: relative to the largest value (the SSD
+#: kernel tests' rtol)
+F32_REL = 1e-4
 ARCHS = ("recurrentgemma-2b", "smollm-360m")
+SSM_ARCH = "mamba2-2.7b"
 MAX_LEN = 96
 
 
-def close(got, want, what):
-    """Fail unless ``got`` is within TOL_EPS bf16 epsilons of the largest
-    |want|."""
+def close(got, want, what, tol_eps=TOL_EPS):
+    """Fail unless ``got`` is within ``tol_eps`` bf16 epsilons of the
+    largest |want|."""
     got = np.asarray(got.float() if isinstance(got, torch.Tensor) else got,
                      np.float32)
     want = np.asarray(want.float() if isinstance(want, torch.Tensor)
                       else want, np.float32)
     assert got.shape == want.shape, (what, got.shape, want.shape)
     assert np.all(np.isfinite(got)), what
-    tol = TOL_EPS * BF16_EPS * max(float(np.abs(want).max()), 1e-6)
+    tol = tol_eps * BF16_EPS * max(float(np.abs(want).max()), 1e-6)
     err = float(np.abs(got - want).max())
     assert err <= tol, f"{what}: max |diff| {err} > {tol}"
 
@@ -86,13 +99,16 @@ def pair(request):
     return Pair(request.param)
 
 
+@pytest.fixture(scope="module")
+def ssm_pair():
+    return Pair(SSM_ARCH)
+
+
 def _tok(a):
     return torch.as_tensor(np.asarray(a, np.int64))
 
 
-@pytest.mark.parametrize("n", [5, 40, 70])
-def test_prefill_logits_and_caches_match_reference(pair, n):
-    """Prompts below (5) and above (40, 70) the reduced window of 32."""
+def _prefill_matches(pair, n):
     toks = pair.prompt(n, seed=n)
     rl, rc = pair.ref_prefill(pair.ref_params, jnp.asarray(toks))
     logits, caches = pair.model.prefill(pair.params, _tok(toks),
@@ -107,10 +123,54 @@ def test_prefill_logits_and_caches_match_reference(pair, n):
             close(g, w, f"cache {name}[{i}] n={n}")
 
 
-@pytest.mark.parametrize("n", [5, 40])
-def test_decode_logits_match_reference_teacher_forced(pair, n):
-    """Six decode steps from each package's own prefill caches, both fed
-    the reference's greedy tokens."""
+@pytest.mark.parametrize("n", [5, 40, 70])
+def test_prefill_logits_and_caches_match_reference(pair, n):
+    """Prompts below (5) and above (40, 70) the reduced window of 32."""
+    _prefill_matches(pair, n)
+
+
+@pytest.mark.parametrize("n", [5, 8, 40, 64])
+def test_ssm_prefill_logits_and_caches_match_reference(ssm_pair, n,
+                                                       monkeypatch):
+    """mamba2: a prompt shorter than the chunk of 8 (one chunk of 5), one
+    chunk, and several; the caches are the ``(conv, ssm)`` states.
+
+    In bf16, as served, the logits and the conv states are held to the
+    reference's bf16 values.  An SSM state sums S steps of bf16-rounded
+    inputs over two layers, and the reference's own bf16 state moves from
+    its f32-compute state by up to 9.0 epsilons (layer 1 at n = 64,
+    measured), so the port's bf16 states are held, at the same 8
+    epsilons, to the reference's f32-compute states, the function both
+    round.  Then both packages compute in f32, and logits and states
+    agree within ``F32_REL`` of the largest value: the algorithms are the
+    same."""
+    pair = ssm_pair
+    toks = pair.prompt(n, seed=n)
+    rl, rc = pair.ref_prefill(pair.ref_params, jnp.asarray(toks))
+    logits, caches = pair.model.prefill(pair.params, _tok(toks))
+    close(logits, rl, f"prefill logits n={n}")
+    with monkeypatch.context() as m:
+        m.setattr(ref_layers, "COMPUTE_DTYPE", jnp.float32)
+        m.setattr(port_layers, "COMPUTE_DTYPE", torch.float32)
+        rl32, rc32 = pair.ref.prefill(pair.ref_params,
+                                      {"tokens": jnp.asarray(toks)}, CTX)
+        logits32, caches32 = pair.model.prefill(pair.params, _tok(toks))
+    want = convert.decode_caches(pair.cfg, jax.tree.map(np.asarray, rc),
+                                 device="cpu")
+    want32 = convert.decode_caches(pair.cfg, jax.tree.map(np.asarray, rc32),
+                                   device="cpu")
+    assert sorted(caches) == sorted(want) == sorted(want32)
+    for name in caches:
+        close(caches[name][0], want[name][0], f"conv state {name} n={n}")
+        close(caches[name][1], want32[name][1], f"ssm state {name} n={n}")
+        for i in range(2):
+            close(caches32[name][i], want32[name][i],
+                  f"f32 state {name}[{i}] n={n}", tol_eps=F32_REL / BF16_EPS)
+    close(logits32, rl32, f"f32 prefill logits n={n}",
+          tol_eps=F32_REL / BF16_EPS)
+
+
+def _decode_matches(pair, n):
     toks = pair.prompt(n, seed=100 + n)
     rl, rc = pair.ref_prefill(pair.ref_params, jnp.asarray(toks))
     _, caches = pair.model.prefill(pair.params, _tok(toks),
@@ -127,11 +187,20 @@ def test_decode_logits_match_reference_teacher_forced(pair, n):
         tok = int(np.argmax(np.asarray(rl[0], np.float32)))
 
 
-@pytest.mark.parametrize("n", [7, 31, 45])
-def test_prefill_then_decode_equals_longer_prefill(pair, n):
-    """Inside the port: prefill of n tokens, then one decode step of token
-    n, gives the logits of a prefill of n + 1 tokens (the window of 32
-    wraps the ring at n = 31 and 45)."""
+@pytest.mark.parametrize("n", [5, 40])
+def test_decode_logits_match_reference_teacher_forced(pair, n):
+    """Six decode steps from each package's own prefill caches, both fed
+    the reference's greedy tokens."""
+    _decode_matches(pair, n)
+
+
+@pytest.mark.parametrize("n", [5, 40])
+def test_ssm_decode_logits_match_reference_teacher_forced(ssm_pair, n):
+    """mamba2: six decode steps carrying the conv and SSM states."""
+    _decode_matches(ssm_pair, n)
+
+
+def _decode_extends_prefill(pair, n):
     toks = pair.prompt(n + 1, seed=200 + n)
     _, caches = pair.model.prefill(pair.params, _tok(toks[:, :n]),
                                    pad_cache_to=MAX_LEN)
@@ -141,9 +210,87 @@ def test_prefill_then_decode_equals_longer_prefill(pair, n):
     close(logits, want, f"decode after prefill n={n}")
 
 
-def test_schema_matches_reference(pair):
-    """Same leaves, shapes and parameter count as the reference (whose
-    homogeneous layers are stacked)."""
+@pytest.mark.parametrize("n", [7, 31, 45])
+def test_prefill_then_decode_equals_longer_prefill(pair, n):
+    """Inside the port: prefill of n tokens, then one decode step of token
+    n, gives the logits of a prefill of n + 1 tokens (the window of 32
+    wraps the ring at n = 31 and 45)."""
+    _decode_extends_prefill(pair, n)
+
+
+@pytest.mark.parametrize("n", [7, 12, 45])
+def test_ssm_prefill_then_decode_equals_longer_prefill(ssm_pair, n):
+    """mamba2 inside the port, with ragged prefills of 13 and 46 tokens
+    (chunk 8) that the reference cannot run (R6)."""
+    _decode_extends_prefill(ssm_pair, n)
+
+
+def test_ssm_ragged_prefill_where_reference_fails(ssm_pair):
+    """R6: the reference's reduced mamba2 raises on a 12-token prefill
+    (``ssd_chunked`` asserts S % chunk == 0 with chunk 8); the port
+    prefills it, and its last logits and (conv, ssm) states equal the
+    reference's prefill of the first 8 tokens followed by 4 teacher-forced
+    decode steps."""
+    pair = ssm_pair
+    toks = pair.prompt(12, seed=12)
+    with pytest.raises(AssertionError, match=r"\(12, 8\)"):
+        pair.ref.prefill(pair.ref_params, {"tokens": jnp.asarray(toks)},
+                         CTX)
+    logits, caches = pair.model.prefill(pair.params, _tok(toks))
+    rl, rc = pair.ref_prefill(pair.ref_params, jnp.asarray(toks[:, :8]))
+    for pos in range(8, 12):
+        rl, rc = pair.ref_decode(pair.ref_params,
+                                 jnp.asarray(toks[:, pos:pos + 1]), rc,
+                                 jnp.asarray([[pos]], jnp.int32))
+    close(logits, rl, "ragged prefill logits")
+    want = convert.decode_caches(pair.cfg, jax.tree.map(np.asarray, rc),
+                                 device="cpu")
+    for name in caches:
+        for i, (g, w) in enumerate(zip(_flat_caches(caches[name]),
+                                       _flat_caches(want[name]))):
+            close(g, w, f"ragged prefill state {name}[{i}]")
+
+
+def test_ssm_block_prefill_starts_from_a_given_state(ssm_pair, monkeypatch):
+    """A prefill given (conv, ssm) states, as a continued prompt would be,
+    starts its scan from the SSM state, as the reference's ``ssm_block``
+    does.  A = -0.05 so the given state reaches every one of the 16
+    steps; both packages compute in f32 and agree within ``F32_REL`` of
+    the largest value, and dropping the given state moves y by far more."""
+    from repro.models.ssm import ssm_block as ref_ssm_block
+    from repro_torch.models.ssm import ssm_block
+    pair = ssm_pair
+    cfg = pair.cfg
+    lp = dict(pair.params["blocks"]["layer_00"]["ssm"])
+    lp["a_log"] = torch.full_like(lp["a_log"], float(np.log(0.05)))
+    rlp = {k: jnp.asarray(v.numpy()) for k, v in lp.items()}
+    rng = np.random.default_rng(3)
+    d_conv = cfg.d_inner + 2 * cfg.ssm_groups * cfg.ssm_state
+    x = rng.standard_normal((1, 16, cfg.d_model)).astype(np.float32)
+    state = (rng.standard_normal((1, cfg.conv_width - 1, d_conv)),
+             rng.standard_normal((1, cfg.ssm_heads, cfg.ssm_head_dim,
+                                  cfg.ssm_state)))
+    state = tuple(a.astype(np.float32) for a in state)
+    with monkeypatch.context() as m:
+        m.setattr(ref_layers, "COMPUTE_DTYPE", jnp.float32)
+        m.setattr(port_layers, "COMPUTE_DTYPE", torch.float32)
+        want = ref_ssm_block(rlp, jnp.asarray(x), pair.ref_cfg, CTX,
+                             state=tuple(map(jnp.asarray, state)))
+        got = ssm_block(lp, torch.from_numpy(x), cfg,
+                        state=tuple(map(torch.from_numpy, state)))
+        cold = ssm_block(lp, torch.from_numpy(x), cfg,
+                         state=(torch.from_numpy(state[0]),
+                                torch.zeros_like(torch.from_numpy(
+                                    state[1]))))
+    tol = F32_REL / BF16_EPS
+    close(got[0], want[0], "block output", tol_eps=tol)
+    close(got[1][0], want[1][0], "conv state", tol_eps=tol)
+    close(got[1][1], want[1][1], "ssm state", tol_eps=tol)
+    with pytest.raises(AssertionError):
+        close(cold[0], want[0], "block output, state dropped", tol_eps=tol)
+
+
+def _schema_matches(pair):
     assert pair.model.param_count() == pair.ref.param_count()
     ref_params = jax.tree.map(np.asarray, pair.ref_params)
     port = dict(leaves(pair.model.schema))
@@ -161,6 +308,27 @@ def test_schema_matches_reference(pair):
     for path, leaf in port.items():
         assert tuple(got[path].shape) == leaf.shape, path
         assert got[path].dtype == leaf.dtype, path
+
+
+def test_schema_matches_reference(pair):
+    """Same leaves, shapes and parameter count as the reference (whose
+    homogeneous layers are stacked)."""
+    _schema_matches(pair)
+
+
+def test_ssm_schema_matches_reference(ssm_pair):
+    """mamba2's blocks have ``ln1`` and ``ssm`` and no ``ln2`` or MLP."""
+    _schema_matches(ssm_pair)
+    assert sorted(ssm_pair.params["blocks"]["layer_00"]) == ["ln1", "ssm"]
+
+
+def test_ssm_full_size_matches_reference_count():
+    """mamba2-2.7b at full width and depth: 64 layers, the reference's
+    2,832,074,240 parameters (counted from the schema, nothing drawn)."""
+    model = build(get(SSM_ARCH))
+    assert model.cfg.num_layers == 64
+    assert model.param_count() == ref_build(ref_get(SSM_ARCH)).param_count() \
+        == 2_832_074_240
 
 
 def test_init_draws_from_the_generator():
@@ -189,7 +357,7 @@ def test_configs_equal_reference(arch):
         dataclasses.asdict(ref_get(arch).reduced())
 
 
-@pytest.mark.parametrize("arch", ["mamba2-2.7b", "olmoe-1b-7b",
+@pytest.mark.parametrize("arch", ["olmoe-1b-7b",
                                   "llama4-scout-17b-a16e",
                                   "seamless-m4t-large-v2", "internvl2-1b"])
 def test_unported_families_raise(arch):

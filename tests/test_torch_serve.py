@@ -1,7 +1,9 @@
 """The port's serving engine and launcher on the CPU: the reference's
 engine behaviours (``tests/test_serve.py``), one engine run against the
 reference's engine on the same requests for each of
-``recurrentgemma-2b.reduced()`` and ``smollm-360m.reduced()``, and the
+``recurrentgemma-2b.reduced()``, ``smollm-360m.reduced()`` and
+``mamba2-2.7b.reduced()`` (``tests/test_serve.py``'s ssm engine round: 2
+slots, ``max_len`` 32, prompts of 4-6 tokens), and the
 reference faults R4 (``max_len`` below the local window) and R5 (one slot
 with per-layer caches) that the port refuses or does not share.
 
@@ -37,7 +39,8 @@ TOL_EPS = 8
 #: the engine-vs-reference run of each config: prompt lengths (the
 #: recurrentgemma ones straddle its reduced window of 32), slots, max_len
 RUNS = {"recurrentgemma-2b": ((5, 40, 70), 2, 96),
-        "smollm-360m": ((4, 9, 20), 2, 64)}
+        "smollm-360m": ((4, 9, 20), 2, 64),
+        "mamba2-2.7b": ((4, 5, 6), 2, 32)}
 NEW_TOKENS = 6
 
 
@@ -320,6 +323,20 @@ def test_launcher_reduced_on_cpu(capsys):
                      r"\([\d.]+ tok/s\)$", text, re.M)
 
 
+def test_launcher_serves_mamba2_reduced_on_cpu(capsys):
+    """The ssm family through the launcher, at its default --max-len 128
+    (no window), with prompts of 4-11 tokens: above the reduced chunk of
+    8 and not multiples of it, which the reference cannot prefill (R6)."""
+    out = launcher.main(["--arch", "mamba2-2.7b", "--reduced", "--device",
+                         "cpu", "--requests", "4", "--max-new-tokens", "3"])
+    text = capsys.readouterr().out
+    assert out["tokens"] == 12 and len(out["requests"]) == 4
+    assert any(len(r.prompt) > 8 and len(r.prompt) % 8
+               for r in out["requests"])
+    assert re.search(r"^serving mamba2-2.7b-reduced: params=89,136 "
+                     r"slots=4$", text, re.M)
+
+
 def test_launcher_refuses_max_len_below_window_before_init():
     """The launcher's default --max-len 128 is below recurrentgemma-2b's
     window of 2048: it raises the R4 error before drawing any of the
@@ -343,6 +360,8 @@ def test_profile_kinds():
                    "__nv_bfloat16, 8>(...)") == "flash_attention_fwd"
     assert kind_of("void (anonymous namespace)::rglru_scan_kernel("
                    "float const*, ...)") == "rglru_scan"
+    assert kind_of("(anonymous namespace)::ssd_scan_kernel(float const*, "
+                   "...)") == "ssd_scan"
     assert kind_of("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NNT") == "matmul"
     assert kind_of("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n") == "matmul"
     assert kind_of("void at::native::vectorized_elementwise_kernel<4, "
