@@ -70,13 +70,19 @@ on failure:
    Mamba2 has them, so the state carried from chunk to chunk counts, and
    some from a given initial state), with ``scaled_dot_product_attention``
    timed beside the attention kernel as the library yardstick (not used
-   by the port);
+   by the port; with the same boolean mask, and where the mask is plain
+   causal also ``is_causal=True`` on the flash backend, the faster of the
+   two taken); the attention kernel's five bf16 serving shapes timed with
+   their share of the bound and TFLOP/s, and ptxas's registers and spills
+   of every flash instance logged (a spill in the bf16 tensor-core kernel
+   fails the run);
 
 5. report: one ``{"kernels": [...]}`` line, then the result line.
 """
 import contextlib
 import importlib.util
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -754,7 +760,7 @@ FA_TOL = {"f32": (3e-5, 1e-4), "bf16": (4e-3, 2.0 ** -7)}
 FA_PATH = "recurrentgemma-2b launcher prompt"
 FA_LARGEST = "recurrentgemma-2b long prompt"
 FA_TIMED = (FA_PATH, "smollm-360m launcher prompt", FA_LARGEST,
-            "smollm-360m 512 tokens")
+            "smollm-360m 512 tokens", "recurrentgemma-2b continuation")
 #: RG-LRU scan shapes [B, S, C]: recurrentgemma-2b's launcher prompt and
 #: long prompt, and larger; all timed
 LRU_CASES = {"recurrentgemma-2b launcher prompt": (1, 7, 2560),
@@ -790,24 +796,39 @@ def fa_inputs(case, gen):
     return mk((b, k, g, sq, hd)), mk((b, k, skv, hd)), mk((b, k, skv, hd))
 
 
-def fa_bound(case):
-    """Least time of one flash-attention call: q, k, v read and out
-    written once against QK and PV at 2 operations per multiply-add for
-    every visible (query, key) pair, at the dense bf16 tensor-core rate."""
-    b, k, g, sq, skv, hd, causal, window, off, dt = case
-    size = 4 if dt == "f32" else 2
-    nbytes = size * (2 * b * k * g * sq * hd + 2 * b * k * skv * hd)
+def fa_ops_count(case) -> float:
+    """Operations one flash-attention call needs: QK and PV at 2 per
+    multiply-add for every visible (query, key) pair."""
+    b, k, g, sq, skv, hd, causal, window, off, _ = case
     pairs = int(fa_ref.attention_mask(sq, skv, causal, window, off,
                                       DEV).sum().item())
+    return 4.0 * b * k * g * pairs * hd
+
+
+def fa_bound(case):
+    """Least time of one flash-attention call: q, k, v read and out
+    written once against ``fa_ops_count`` at the dense bf16 tensor-core
+    rate."""
+    b, k, g, sq, skv, hd, _, _, _, dt = case
+    size = 4 if dt == "f32" else 2
+    nbytes = size * (2 * b * k * g * sq * hd + 2 * b * k * skv * hd)
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = 4.0 * b * k * g * pairs * hd / PEAK_BF16_OPS_PER_S * 1e3
+    t_ops = fa_ops_count(case) / PEAK_BF16_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def sdpa_ms(case, q, k, v, reps):
+def plain_causal(case) -> bool:
+    """The mask is plain causal from offset 0 (a window wider than the
+    prompt cuts nothing), so ``is_causal=True`` computes the same."""
+    _, _, _, sq, skv, _, causal, window, off, _ = case
+    return causal and off == 0 and sq == skv and (window <= 0 or window >= sq)
+
+
+def sdpa_ms(case, q, k, v, reps) -> dict:
     """The library yardstick: ``scaled_dot_product_attention`` on the same
-    inputs with K/V expanded to the G heads and the same boolean mask
-    (timed only; the port never calls it)."""
+    inputs with K/V expanded to the G heads and the same boolean mask; for
+    a plain causal mask also ``is_causal=True`` on the flash backend
+    (timed only; the port never calls it).  ms of each form."""
     b, kh, g, sq, skv, hd, causal, window, off, _ = case
     qh = q.reshape(b, kh * g, sq, hd)
     kx = k[:, :, None].expand(b, kh, g, skv, hd).reshape(b, kh * g, skv, hd)
@@ -819,7 +840,44 @@ def sdpa_ms(case, q, k, v, reps):
     got = sdpa(qh, kx, vx, attn_mask=mask).reshape(want.shape)
     close("scaled_dot_product_attention vs plain", got.float().cpu(),
           want.float().cpu(), 3e-2)
-    return time_ms(lambda: sdpa(qh, kx, vx, attn_mask=mask), reps)
+    out = {"masked": time_ms(lambda: sdpa(qh, kx, vx, attn_mask=mask), reps)}
+    if plain_causal(case):
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
+            got = sdpa(qh, kx, vx, is_causal=True).reshape(want.shape)
+            close("scaled_dot_product_attention (flash, is_causal) vs plain",
+                  got.float().cpu(), want.float().cpu(), 3e-2)
+            out["is_causal_flash"] = time_ms(
+                lambda: sdpa(qh, kx, vx, is_causal=True), reps)
+    return out
+
+
+def ptxas_instances(log: str, kernel: str) -> dict:
+    """ptxas's report of each instance of ``kernel`` in a build log:
+    ``{"kernel<args>": {"registers": n, "spill_stores": bytes,
+    "spill_loads": bytes}}``."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = None
+            hit = re.search(rf"({kernel}\w*?)I((?:Li\d+E)+)E", m.group(1))
+            if hit:
+                args = ", ".join(re.findall(r"Li(\d+)E", hit.group(2)))
+                name = f"{hit.group(1)}<{args}>"
+                out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spill_stores"] = int(m.group(1))
+            out[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def phase_lm_kernels():
@@ -827,6 +885,23 @@ def phase_lm_kernels():
     the card; timings at the serving path's shapes."""
     gen = torch.Generator(device=DEV).manual_seed(13)
     records = {"flash_attention_fwd": {}, "rglru_scan": {}}
+    log_text = _build.BUILD_LOG.get("flash_attention")
+    if log_text is None:
+        log("ptxas [flash_attention]: library was already built, no report")
+    else:
+        insts = ptxas_instances(log_text, "flash_fwd_kernel")
+        for name, rep in insts.items():
+            log(f"ptxas {name}: {rep.get('registers')} registers, "
+                f"{rep.get('spill_stores')} bytes spill stores, "
+                f"{rep.get('spill_loads')} bytes spill loads")
+        if not any("bf16" in name for name in insts):
+            raise AssertionError("no bf16 flash instance in the ptxas report")
+        spills = [n for n, r in insts.items() if "bf16" in n and
+                  (r.get("spill_stores", 1) or r.get("spill_loads", 1))]
+        if spills:
+            raise AssertionError(f"the tensor-core flash kernel spills: "
+                                 f"{spills}")
+        records["flash_attention_fwd"]["ptxas"] = insts
     err_all = 0.0
     for label, case in FA_CASES.items():
         causal, window, off, dt = case[6:]
@@ -855,15 +930,21 @@ def phase_lm_kernels():
                 q, k, v, causal, window, off), 20)
             rec["plain_ms"] = time_ms(lambda: fa_ref.attention_ref(
                 q, k, v, causal=causal, window=window, q_offset=off), 5)
-            rec["library_ms"] = sdpa_ms(case, q, k, v, 20)
+            rec["sdpa_ms"] = sdpa_ms(case, q, k, v, 20)
+            rec["library_ms"] = min(rec["sdpa_ms"].values())
             rec["bound_ms"], rec["bound_by"] = fa_bound(case)
+            rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+            rec["tflops"] = fa_ops_count(case) / rec["ms"] * 1e-9
         records["flash_attention_fwd"][label] = rec
         log(f"kernel flash_attention_fwd @ {label} {case}: max |diff| vs "
             f"plain {err:.3g} (atol {atol}, rtol {rtol}; rms of the output "
             f"{rec['rms_out']:.3g})"
-            + (f"; kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
-               f"ms, scaled_dot_product_attention {rec['library_ms']:.4f} "
-               f"ms, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+            + (f"; kernel {rec['ms']:.4f} ms ({rec['tflops']:.1f} TFLOP/s, "
+               f"{100 * rec['share_of_bound']:.1f}% of its bound), plain "
+               f"{rec['plain_ms']:.4f} ms, scaled_dot_product_attention "
+               + ", ".join(f"{form} {t:.4f} ms"
+                           for form, t in rec["sdpa_ms"].items())
+               + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
                if "ms" in rec else ""))
     records["flash_attention_fwd"]["max_abs_err"] = err_all
 
@@ -1398,13 +1479,15 @@ def lm_kernel_records(lm_records, serving):
             "path_library_ms": rs[path].get("library_ms"),
             "timed": {label: {k: rec.get(k) for k in (
                 "ms", "plain_ms", "oracle_ms", "bound_ms", "bound_by",
-                "library_ms") if k in rec}
+                "library_ms", "sdpa_ms", "share_of_bound", "tflops")
+                if k in rec}
                 for label, rec in rs.items()
                 if isinstance(rec, dict) and "ms" in rec},
             "launches_per_run": {label: rec["launches"][name]
                                  for label, rec in serving.items()
                                  if "launches" in rec},
         })
+    out[0]["ptxas"] = lm_records["flash_attention_fwd"].get("ptxas")
     out[1]["bitwise"] = lm_records["rglru_scan"]["bitwise"]
     line = {run: {k: rec[k] for k in ("wall_s", "tokens", "tok_per_s",
                                       "peak_gib", "launcher_s") if k in rec}

@@ -9,6 +9,7 @@ launches the kernel.  Forward only: the port has no training path.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict
 
 import torch
@@ -27,8 +28,11 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
+@functools.lru_cache(maxsize=None)
 def softmax_scale(hd: int) -> float:
-    """``1 / sqrt(f32(hd))`` rounded to f32, the reference's scale."""
+    """``1 / sqrt(f32(hd))`` rounded to f32, the reference's scale
+    (computed once per head dim: the wrapper's host time counts at short
+    prompts)."""
     return float(1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32)))
 
 

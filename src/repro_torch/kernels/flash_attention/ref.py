@@ -12,7 +12,7 @@ import torch
 
 #: score of a masked position, as in the reference
 NEG_INF = -1e30
-#: the largest head dimension the CUDA kernel takes (8 elements a lane)
+#: the largest head dimension the CUDA kernels take
 MAX_HEAD_DIM = 256
 DTYPES = (torch.float32, torch.bfloat16)
 

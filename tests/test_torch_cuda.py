@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: each flit kernel bitwise equal to
-its plain version, the flash-attention kernel within tolerance of its
-plain version (f32: atol 3e-5, rtol 1e-4; bf16: one output ulp, atol
-4e-3, rtol 2^-7),
+its plain version, the flash-attention kernels within tolerance of their
+plain version (the f32 CUDA-core kernel: atol 3e-5, rtol 1e-4; the bf16
+tensor-core kernel: one output ulp, atol 4e-3, rtol 2^-7, at head dims 16
+to 256, ragged Sq and Skv, Sq = 1, windows, offsets, MQA and GQA, one and
+two warpgroups a block, and the element-load path for hd % 8 != 0),
 the RG-LRU scan bitwise and the SSD scan within the reference's
 tolerance (atol 5e-5, rtol 1e-4), the launch counters, the bridge, the
 Fig-13 design space and reduced LM serving on the card.  Marked
@@ -175,6 +177,28 @@ def test_fig13_on_card_matches_cpu(dev):
     (1, 1, 10, 300, 300, 256, True, 64, 0, torch.bfloat16),
     (1, 5, 3, 77, 77, 64, True, 0, 0, torch.bfloat16),
     (1, 1, 4, 33, 97, 96, True, 40, 64, torch.bfloat16),
+    # the tensor-core kernel: hd 16 (zero-padded to 64), ragged Sq and Skv
+    (1, 2, 2, 100, 300, 16, True, 0, 200, torch.bfloat16),
+    # hd 128, GQA G = 3, two batches, Sq = Skv = 130
+    (2, 2, 3, 130, 130, 128, True, 0, 0, torch.bfloat16),
+    # Sq = 1: MQA G = 10 at hd 256, and one query against 200 keys
+    (1, 1, 10, 1, 1, 256, True, 2048, 0, torch.bfloat16),
+    (1, 1, 2, 1, 200, 64, True, 0, 199, torch.bfloat16),
+    # non-causal cross attention, ragged Skv
+    (2, 1, 1, 64, 160, 64, False, 0, 0, torch.bfloat16),
+    (1, 3, 1, 65, 129, 96, False, 0, 0, torch.bfloat16),
+    # q_offset with a window edge inside a tile; whole tiles below the
+    # window masked for some rows and skipped for the others
+    (1, 1, 10, 200, 700, 256, True, 100, 500, torch.bfloat16),
+    (1, 1, 1, 500, 500, 128, True, 70, 0, torch.bfloat16),
+    (1, 2, 3, 257, 257, 256, True, 0, 0, torch.bfloat16),
+    # two warpgroups a block (the grid fills the card): G = 4 pairs the
+    # same rows, G = 3 pairs query tiles of different reach
+    (2, 2, 4, 1100, 1100, 64, True, 0, 0, torch.bfloat16),
+    (2, 4, 3, 1000, 1000, 128, True, 300, 0, torch.bfloat16),
+    # head dims that are not a multiple of 8: element loads, odd stores
+    (1, 1, 2, 100, 100, 20, True, 0, 0, torch.bfloat16),
+    (1, 1, 2, 50, 50, 33, True, 0, 0, torch.bfloat16),
 ])
 def test_flash_attention_close_to_plain(dev, b, k, g, sq, skv, hd, causal,
                                         window, off, dtype):

@@ -119,6 +119,19 @@ def test_constants_and_scale_match_reference():
         assert np.float32(ops.softmax_scale(hd)) == want
 
 
+@pytest.mark.parametrize("hd", [16, 64, 96, 128, 256])
+def test_softmax_scale_is_cached_reference_scale(hd):
+    """The wrapper's scale, computed once per head dim, is the reference
+    model's ``1 / sqrt(f32(hd))`` in f32 (``attend_chunked``), bit for
+    bit, on every call."""
+    want = np.float32((1.0 / jnp.sqrt(hd)).astype(jnp.float32))
+    first = ops.softmax_scale(hd)
+    hits = ops.softmax_scale.cache_info().hits
+    assert np.float32(first) == want
+    assert ops.softmax_scale(hd) == first
+    assert ops.softmax_scale.cache_info().hits == hits + 1
+
+
 def test_wrapper_rejects_bad_operands():
     q = torch.zeros((1, 1, 2, 8, 16))
     kv = torch.zeros((1, 1, 8, 16))

@@ -358,6 +358,10 @@ def test_profile_kinds():
     from repro_torch.launch.profile_serve import kind_of
     assert kind_of("void (anonymous namespace)::flash_fwd_kernel<"
                    "__nv_bfloat16, 8>(...)") == "flash_attention_fwd"
+    assert kind_of("void (anonymous namespace)::flash_fwd_kernel_bf16<256, "
+                   "2>(CUtensorMap, ...)") == "flash_attention_fwd"
+    assert kind_of("void (anonymous namespace)::flash_fwd_kernel_f32<8>("
+                   "float const*, ...)") == "flash_attention_fwd"
     assert kind_of("void (anonymous namespace)::rglru_scan_kernel("
                    "float const*, ...)") == "rglru_scan"
     assert kind_of("(anonymous namespace)::ssd_scan_kernel(float const*, "
