@@ -66,9 +66,11 @@ on failure:
    ``tests/test_kernels.py``'s shapes and the serving runs' (attention in
    bf16 as served, and in f32; the SSD scan against its chunked form
    everywhere and the sequential oracle at the test shapes, the launcher
-   prompt and a ragged 2100 steps; some cases with step sizes as trained
-   Mamba2 has them, so the state carried from chunk to chunk counts, and
-   some from a given initial state), with ``scaled_dot_product_attention``
+   prompt, a ragged 2100 steps and the cases at the edges of its 128-step
+   chunk (1, 127, 128, 129 and 389 steps; N 16 and 32; P 80); some cases
+   with step sizes as trained Mamba2 has them, so the state carried from
+   chunk to chunk counts, and some from a given initial state, four rows
+   of 300 steps with both), with ``scaled_dot_product_attention``
    timed beside the attention kernel as the library yardstick (not used
    by the port; with the same boolean mask, and where the mask is plain
    causal also ``is_causal=True`` on the flash backend, the faster of the
@@ -119,6 +121,8 @@ from repro_torch.serve import Request, ServingEngine  # noqa: E402
 #: f32 operations/s outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+#: ... and dense TF32 operations/s of the tensor cores
+PEAK_TF32_OPS_PER_S = 495e12
 #: ... and dense bf16 operations/s of the tensor cores
 PEAK_BF16_OPS_PER_S = 989e12
 #: f32 operations of one cycle of the symmetric step (flitsim
@@ -197,6 +201,23 @@ def time_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def stream_ms(fn, calls: int = 10) -> float:
+    """CUDA-event time of ``calls`` back-to-back ``fn()`` over ``calls``,
+    ms: the host enqueues the next call while the card runs one, so a
+    long call's time is the card's alone (``time_ms`` times one call on
+    an idle card, the host's side of the call included)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(calls):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / calls
 
 
 def hold(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -983,7 +1004,10 @@ def phase_lm_kernels():
 #: tests/test_kernels.py's four shapes, then mamba2-2.7b's (80 heads, P 64,
 #: N 128, chunk 256): the launcher prompt, a 2048-token prefill, a ragged
 #: 2100 tokens and four rows of 2048; then slow-decay and initial-state
-#: variants (SSD_SLOW, SSD_INIT)
+#: variants (SSD_SLOW, SSD_INIT); then the edges of the kernel's 128-step
+#: chunk (1, 127, 128, 129 and 3 x 128 + 5 steps), N 16 and 32, P 80 (a
+#: 64-column tile and a ragged one) and four rows under a slow decay from
+#: a given state
 SSD_CASES = {"test 2x64x4 P16 N8": (2, 64, 4, 16, 8, 16),
              "test 1x128x2 P32 N16": (1, 128, 2, 32, 16, 32),
              "test 2x96x3 P16 N8": (2, 96, 3, 16, 8, 32),
@@ -999,11 +1023,21 @@ SSD_CASES = {"test 2x64x4 P16 N8": (2, 64, 4, 16, 8, 16),
              "mamba2-2.7b ragged 2100 tokens slow":
                  (1, 2100, 80, 64, 128, 256),
              "mamba2-2.7b ragged 2100 tokens slow init":
-                 (1, 2100, 80, 64, 128, 256)}
+                 (1, 2100, 80, 64, 128, 256),
+             "mamba2-2.7b 1 token": (1, 1, 80, 64, 128, 256),
+             "mamba2-2.7b 127 tokens": (1, 127, 80, 64, 128, 256),
+             "mamba2-2.7b 128 tokens": (1, 128, 80, 64, 128, 256),
+             "mamba2-2.7b 129 tokens": (1, 129, 80, 64, 128, 256),
+             "mamba2-2.7b 389 tokens": (1, 389, 80, 64, 128, 256),
+             "389 tokens N16": (1, 389, 80, 64, 16, 256),
+             "389 tokens N32": (1, 389, 80, 64, 32, 256),
+             "389 tokens P80": (1, 389, 80, 80, 128, 256),
+             "4 x 300 slow init": (4, 300, 80, 64, 128, 256)}
 #: cases with dt = softplus(N(0, 1) + SSD_SLOW_DT), about 0.011, as trained
-#: Mamba2 step sizes are, so a 64-step chunk decays by about 0.5 and the
-#: state carried from chunk to chunk counts (with dt = softplus(N(0, 1)) a
-#: chunk hands on about exp(-51) of it) ...
+#: Mamba2 step sizes are, so a 64-step chunk decays by about 0.5 (a
+#: 128-step one by about 0.25) and the state carried from chunk to chunk
+#: counts (with dt = softplus(N(0, 1)) a 64-step chunk hands on about
+#: exp(-51) of it) ...
 SSD_SLOW = tuple(k for k in SSD_CASES if " slow" in k)
 SSD_SLOW_DT = -5.0
 #: ... and with a random initial state (a continued prefill)
@@ -1017,7 +1051,7 @@ SSD_REL = 1e-4
 #: against ssd_chunked)
 SSD_ORACLE = tuple(k for k in SSD_CASES
                    if k.startswith("test") or "launcher" in k
-                   or "ragged" in k)
+                   or "ragged" in k or "2048" not in k)
 SSD_PATH = "mamba2-2.7b launcher prompt"
 SSD_LARGEST = "4 x 2048"
 SSD_TIMED = (SSD_PATH, "mamba2-2.7b 2048 tokens",
@@ -1040,13 +1074,22 @@ def ssd_ops_per_step(s, h, p, n):
 
 
 def ssd_bound(case):
-    """Least time of one SSD scan: x, dt, b, c, a_log read and y and the
-    final state written once, against :func:`ssd_ops_per_step` operations
-    per step and head at the f32 rate."""
+    """Least time of one SSD scan on the route the kernel takes: x, dt, b,
+    c, a_log read and y and the final state written once, against
+    :func:`ssd_ops_per_step` operations per step and head run as 3xTF32 on
+    the tensor cores (three TF32 products for each f32 one, at the dense
+    TF32 rate).  Returns (ms, "bytes" or "operations", the f32 bound: the
+    same operations at the f32 CUDA-core rate, ms)."""
     bsz, s, h, p, n, _ = case
     nbytes = 4.0 * (2 * bsz * s * h * p + bsz * s * h + 2 * bsz * s * n + h
                     + bsz * h * p * n)
-    return bound_ms(nbytes, bsz * h * s * ssd_ops_per_step(s, h, p, n))
+    ops_ = bsz * h * s * ssd_ops_per_step(s, h, p, n)
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_tf32 = 3 * ops_ / PEAK_TF32_OPS_PER_S * 1e3
+    f32_ms = max(t_bytes, ops_ / PEAK_F32_OPS_PER_S * 1e3)
+    if t_bytes >= t_tf32:
+        return t_bytes, "bytes", f32_ms
+    return t_tf32, "operations", f32_ms
 
 
 def ssd_inputs(case, gen, slow=False, init=False):
@@ -1057,6 +1100,28 @@ def ssd_inputs(case, gen, slow=False, init=False):
                                       + (SSD_SLOW_DT if slow else 0.0))
     return (rn(bsz, s, h, p), dt, rn(bsz, s, n) * 0.5, rn(bsz, s, n) * 0.5,
             rn(h) * 0.3, rn(bsz, h, p, n) if init else None)
+
+
+def ssd_stage_ms(fn, calls: int = 5) -> dict:
+    """Device ms a call of each of the SSD scan's kernels (``prep``,
+    ``states``, ``pass``, ``out``, ``short``), from ``torch.profiler``
+    over ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.events():
+        m = re.search(r"ssd_scan_(\w+?)_kernel", evt.name)
+        if evt.device_type == torch.autograd.DeviceType.CUDA and m:
+            out[m.group(1)] = out.get(m.group(1), 0.0) + \
+                evt.time_range.elapsed_us() / 1e3 / calls
+    if not out:
+        raise AssertionError("ssd_scan: the profiler saw no kernel")
+    return out
 
 
 def phase_ssd_kernel():
@@ -1079,8 +1144,8 @@ def phase_ssd_kernel():
             plains["ssd_ref"] = lambda: ssd_ref.ssd_ref(x, dt, b, c, a_log,
                                                         init_state=s0)
         test = label.startswith("test")
-        # the mean decay over one of the kernel's 64-step chunks
-        a = torch.exp(a_log) * dt[:, :min(64, case[1])].sum(1)
+        # the mean decay over one of the kernel's 128-step chunks
+        a = torch.exp(a_log) * dt[:, :min(128, case[1])].sum(1)
         rec = dict(case=list(case), max_abs_err=0.0,
                    chunk_decay=float(torch.exp(-a).mean().item()),
                    max_abs_y=float(y.abs().max().item()),
@@ -1107,20 +1172,33 @@ def phase_ssd_kernel():
         if label in SSD_TIMED:
             rec["ms"] = time_ms(lambda: ssd_ops.ssd(x, dt, b, c, a_log,
                                                     chunk), 20)
+            rec["stream_ms"] = stream_ms(lambda: ssd_ops.ssd(x, dt, b, c,
+                                                             a_log, chunk))
+            rec["stage_ms"] = ssd_stage_ms(lambda: ssd_ops.ssd(
+                x, dt, b, c, a_log, chunk))
             rec["plain_ms"] = time_ms(plains["ssd_chunked"], 3)
             if "ssd_ref" in plains:
                 rec["oracle_ms"] = time_ms(plains["ssd_ref"], 1)
-            rec["bound_ms"], rec["bound_by"] = ssd_bound(case)
+            rec["bound_ms"], rec["bound_by"], rec["bound_f32_ms"] = \
+                ssd_bound(case)
+            rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+            rec["share_of_f32_bound"] = rec["bound_f32_ms"] / rec["ms"]
         records[label] = rec
         errs = {k: f"{v:.3g}" for k, v in rec.items() if k.startswith("err_")}
         log(f"kernel ssd_scan @ {label} {case}: max |diff| {errs} (max |y| "
             f"{rec['max_abs_y']:.3g}, max |state| {rec['max_abs_state']:.3g}"
-            f", mean decay of a 64-step chunk {rec['chunk_decay']:.3g})"
-            + (f"; kernel {rec['ms']:.4f} ms, plain ssd_chunked "
+            f", mean decay of a 128-step chunk {rec['chunk_decay']:.3g})"
+            + (f"; kernel {rec['ms']:.4f} ms ({rec['stream_ms']:.4f} ms a "
+               f"call back to back), plain ssd_chunked "
                f"{rec['plain_ms']:.4f} ms"
                + (f", ssd_ref {rec['oracle_ms']:.2f} ms"
                   if "oracle_ms" in rec else "")
-               + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})"
+               + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+               f"3xTF32; {rec['share_of_bound']:.1%} of it), f32 bound "
+               f"{rec['bound_f32_ms']:.4f} ms ({rec['share_of_f32_bound']:.1%}"
+               f" of it); device ms a call by kernel "
+               + json.dumps({k: round(v, 4) for k, v in
+                             rec["stage_ms"].items()})
                if "ms" in rec else ""))
     records["max_abs_err"] = err_all
     return records
@@ -1479,7 +1557,9 @@ def lm_kernel_records(lm_records, serving):
             "path_library_ms": rs[path].get("library_ms"),
             "timed": {label: {k: rec.get(k) for k in (
                 "ms", "plain_ms", "oracle_ms", "bound_ms", "bound_by",
-                "library_ms", "sdpa_ms", "share_of_bound", "tflops")
+                "bound_f32_ms", "share_of_f32_bound", "stream_ms",
+                "stage_ms", "library_ms",
+                "sdpa_ms", "share_of_bound", "tflops")
                 if k in rec}
                 for label, rec in rs.items()
                 if isinstance(rec, dict) and "ms" in rec},

@@ -14,6 +14,8 @@ from __future__ import annotations
 
 from typing import Dict
 
+import torch
+
 from repro_torch.kernels.ssd_scan import kernel as _k
 from repro_torch.kernels.ssd_scan.ref import check_operands
 
@@ -29,16 +31,17 @@ def reset_launches() -> None:
 def ssd(x, dt, b, c, a_log, chunk: int = 128, init_state=None):
     """x: [B,S,H,P]; dt: [B,S,H]; b, c: [B,S,N]; a_log: [H]; init_state:
     [B,H,P,N] or None (zero) -> (y [B,S,H,P], final_state [B,H,P,N]) f32."""
-    ts = (x, dt, b, c, a_log) + (() if init_state is None else (init_state,))
-    devs = {t.device for t in ts}
-    if len(devs) != 1:
-        raise ValueError(f"ssd_scan: operands on several devices "
-                         f"{sorted(map(str, devs))}")
+    ts = (x, dt, b, c, a_log) if init_state is None \
+        else (x, dt, b, c, a_log, init_state)
     dev = x.device
-    x, dt, b, c, a_log = (t.float().contiguous()
-                          for t in (x, dt, b, c, a_log))
-    if init_state is not None:
-        init_state = init_state.float().contiguous()
+    if any(t.device != dev for t in ts):
+        raise ValueError(f"ssd_scan: operands on several devices "
+                         f"{sorted({str(t.device) for t in ts})}")
+    # converted only where needed: each call is host time on short prompts
+    ts = tuple(t if t.dtype is torch.float32 and t.is_contiguous()
+               else t.float().contiguous() for t in ts)
+    x, dt, b, c, a_log = ts[:5]
+    init_state = ts[5] if len(ts) > 5 else None
     if dev.type == "cpu":
         from repro_torch.models.ssm import ssd_chunked
         check_operands(x, dt, b, c, a_log, init_state)

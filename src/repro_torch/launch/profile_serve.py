@@ -41,7 +41,7 @@ def kind_of(kernel_name: str) -> str:
         return "flash_attention_fwd"
     if "rglru_scan_kernel" in name:
         return "rglru_scan"
-    if "ssd_scan_kernel" in name:
+    if "ssd_scan_" in name:               # every stage of the SSD scan
         return "ssd_scan"
     if any(s in name for s in ("gemm", "xmma", "nvjet", "cutlass",
                                "cublas")):

@@ -76,4 +76,11 @@ def build(cfg: ModelConfig) -> Model:
             f"{cfg.frontend!r}) is not ported yet; the port runs the "
             f"dense, hybrid and ssm families (ROADMAP.md queue 1 item 10: "
             f"moe, encdec and vision are still to be ported)")
+    if "ssm" in cfg.layer_kinds() and cfg.ssm_groups != 1:
+        raise NotImplementedError(
+            f"{cfg.name}: ssm_groups={cfg.ssm_groups}; the port's Mamba2 "
+            f"block takes one B/C group: the reference's one-step decode "
+            f"sums B and C over the groups where its prefill gives each "
+            f"head its own group (ROADMAP.md, R7), so no grouped result "
+            f"can be held against it")
     return Model(cfg)

@@ -6,8 +6,9 @@ Per head h with scalar decay a_t = exp(dt_t * A_h)  (A_h = -exp(A_log)):
     state_t = a_t * state_{t-1} + dt_t * B_t  x_t^T      ([N, P] outer)
     y_t     = C_t . state_t + D_h * x_t
 
-Prefill runs the scan through the SSD wrapper
-(:func:`repro_torch.kernels.ssd_scan.ops.ssd`: the CUDA kernel on the
+The block takes one B/C group (``models.build`` refuses ``ssm_groups``
+other than 1: ROADMAP.md, R7).  Prefill runs the scan through the SSD
+wrapper (:func:`repro_torch.kernels.ssd_scan.ops.ssd`: the CUDA kernel on the
 card; on the CPU :func:`ssd_chunked`, the chunked closed form the
 reference's model runs, arXiv:2405.21060 §6).  Decode carries
 (conv_state, ssm_state [B, H, P, N]) and takes one recurrence step.
@@ -164,17 +165,13 @@ def ssm_block(params, x, cfg: ModelConfig, state: Tuple = None,
         ssm_state = state[1]                              # [B, H, P, N] fp32
         a = -torch.exp(params["a_log"].float())
         da = torch.exp(dt[:, 0] * a)                      # [B, H]
-        bx = torch.einsum("bhp,bgn->bhpn",
+        bx = torch.einsum("bhp,bn->bhpn",
                           (xs[:, 0] * dt[:, 0, :, None]).float(),
-                          b[:, 0].float())
+                          b[:, 0, 0].float())
         new_ssm = da[..., None, None] * ssm_state + bx
-        y = torch.einsum("bhpn,bgn->bhp", new_ssm, c[:, 0].float())
+        y = torch.einsum("bhpn,bn->bhp", new_ssm, c[:, 0, 0].float())
         y = y[:, None]                                    # [B, 1, H, P]
     else:
-        if g != 1:
-            raise NotImplementedError(
-                f"{cfg.name}: the SSD scan takes one B/C group, got "
-                f"ssm_groups={g}")
         init = state[1] if state is not None else None
         y, new_ssm = ssd_ops.ssd(xs, dt, b[:, :, 0], c[:, :, 0],
                                  params["a_log"], min(cfg.ssm_chunk, s), init)

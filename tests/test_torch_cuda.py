@@ -5,7 +5,8 @@ tensor-core kernel: one output ulp, atol 4e-3, rtol 2^-7, at head dims 16
 to 256, ragged Sq and Skv, Sq = 1, windows, offsets, MQA and GQA, one and
 two warpgroups a block, and the element-load path for hd % 8 != 0),
 the RG-LRU scan bitwise and the SSD scan within the reference's
-tolerance (atol 5e-5, rtol 1e-4), the launch counters, the bridge, the
+tolerance (atol 5e-5, rtol 1e-4; at the edges of its chunk at full width,
+1e-4 of the largest value), the launch counters, the bridge, the
 Fig-13 design space and reduced LM serving on the card.  Marked
 ``cuda``: they skip where there is no card (as on a CPU-only machine) and
 run on the card with
@@ -281,6 +282,47 @@ def test_ssd_scan_slow_decay_and_initial_state_close_to_plain(
                              min(64, s), init_state=s0)):
         torch.testing.assert_close(y, want[0], atol=5e-5, rtol=1e-4)
         torch.testing.assert_close(fs, want[1], atol=5e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("bsz,s,p,n,slow,init", [
+    (1, 1, 64, 128, False, False), (1, 16, 64, 128, False, True),
+    (1, 17, 64, 128, False, False), (1, 127, 64, 128, False, False),
+    (1, 128, 64, 128, False, False), (1, 129, 64, 128, False, True),
+    (1, 389, 64, 128, False, False), (1, 389, 64, 16, False, False),
+    (1, 389, 64, 32, True, False), (1, 389, 80, 128, False, True),
+    (4, 300, 64, 128, True, True), (1, 77, 18, 10, False, True),
+    (2, 11, 18, 10, True, True)])
+def test_ssd_scan_chunk_edges_close_to_plain(dev, bsz, s, p, n, slow, init):
+    """mamba2-2.7b's 80 heads at the edges of the kernel's 128-step chunk
+    (1, Q - 1, Q, Q + 1 and 3 Q + 5 steps) and of its one-launch path for
+    short prompts (16, 17 steps), N 16 and 32, P 80 (a 64-column tile and a
+    ragged one), four rows under a slow decay from a given state, and P 18
+    with N 10 (rows not of whole 16 bytes: the 4-byte copies): against
+    both plain versions within 1e-4 of the largest |y| and |state|
+    (chip_smoke.py's SSD_REL for its full-width cases: at this width the
+    two plain versions part by more than atol 5e-5 / rtol 1e-4 elementwise
+    from 389 steps on)."""
+    h = 80
+    gen = torch.Generator(device=dev).manual_seed(s + p + n)
+    x = torch.randn((bsz, s, h, p), generator=gen, device=dev)
+    dt = torch.nn.functional.softplus(
+        torch.randn((bsz, s, h), generator=gen, device=dev)
+        - (5.0 if slow else 0.0))
+    b = torch.randn((bsz, s, n), generator=gen, device=dev) * 0.5
+    c = torch.randn((bsz, s, n), generator=gen, device=dev) * 0.5
+    a_log = torch.randn((h,), generator=gen, device=dev) * 0.3
+    s0 = (torch.randn((bsz, h, p, n), generator=gen, device=dev)
+          if init else None)
+    ssd_ops.reset_launches()
+    y, fs = ssd_ops.ssd(x, dt, b, c, a_log, 256, init_state=s0)
+    assert ssd_ops.launches["ssd_scan"] == 1
+    for want in (ssd_ref.ssd_ref(x, dt, b, c, a_log, init_state=s0),
+                 ssd_chunked(x, dt, b[:, :, None], c[:, :, None], a_log,
+                             min(256, s), init_state=s0)):
+        for got, w in ((y, want[0]), (fs, want[1])):
+            assert torch.isfinite(got).all()
+            err = (got - w).abs().max().item()
+            assert err <= 1e-4 * w.abs().max().item(), err
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "smollm-360m",

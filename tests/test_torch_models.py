@@ -396,3 +396,60 @@ def test_dense_variants_build():
         logits, _ = model.prefill(params, torch.tensor([[1, 2, 3]]))
         assert logits.shape == (1, cfg.padded_vocab)
         assert torch.isfinite(logits[:, :cfg.vocab_size].float()).all()
+
+
+def test_grouped_ssm_config_refused_by_build():
+    """P1: a Mamba2 config with ``ssm_groups`` = 2 is refused by ``build``,
+    before any prefill or decode, with a message naming the reference's
+    grouped decode fault (R7)."""
+    cfg = dataclasses.replace(get(SSM_ARCH).reduced(), ssm_groups=2)
+    with pytest.raises(NotImplementedError, match="R7"):
+        build(cfg)
+
+
+def _decode_spread(prefill, decode, toks):
+    """max |logits| difference between a prefill of 7 tokens followed by
+    one decode step of token 8 and a prefill of all 8 tokens."""
+    f32 = lambda a: np.asarray(a.float() if isinstance(a, torch.Tensor)
+                               else a, np.float32)
+    _, caches = prefill(toks[:, :7])
+    stepped = decode(toks[:, 7:], caches)
+    whole = prefill(toks)[0]
+    return float(np.max(np.abs(f32(stepped) - f32(whole))))
+
+
+def test_ssm_bf16_spread_at_full_depth_is_the_references():
+    """P2: does the port part a prefill plus a decode step from the longer
+    prefill by more than the reference does, at full depth in bf16?
+    ``mamba2-2.7b.reduced()`` with ``num_layers=64`` in both packages from
+    the same weights; for four token draws, a 7-token prefill and one decode
+    step against an 8-token prefill (lengths the reference takes: R6).  The
+    port's largest logit difference between the two orders must be at most
+    twice the reference's (a factor fixed before any run).  Measured on the
+    CPU (largest logit 2.2-3.1, so the 8-epsilon bound is 0.14-0.19): the
+    reference 0.0234, 0.2012, 0 and 0; the port 0 at all four.  The spread
+    is the reference's own (its worst, 0.2012, is 1.2x its bound), so
+    chip_smoke.py keeps its full-width decode check in f32 compute."""
+    ref_cfg = dataclasses.replace(ref_get(SSM_ARCH).reduced(), num_layers=64)
+    cfg = dataclasses.replace(get(SSM_ARCH).reduced(), num_layers=64)
+    ref, model = ref_build(ref_cfg), build(cfg)
+    ref_params = ref.init(jax.random.PRNGKey(0))
+    params = convert.model_params(cfg, jax.tree.map(np.asarray, ref_params),
+                                  device="cpu")
+    ref_prefill = jax.jit(lambda t: ref.prefill(ref_params, {"tokens": t},
+                                                CTX, pad_cache_to=16))
+    ref_decode = jax.jit(lambda t, c: ref.decode_step(
+        ref_params, t, c, jnp.asarray([[7]], jnp.int32), CTX)[0])
+    ref_spread, port_spread = [], []
+    for seed in range(4):
+        toks = np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (1, 8)).astype(np.int32)
+        ref_spread.append(_decode_spread(
+            lambda t: ref_prefill(jnp.asarray(t)),
+            lambda t, c: ref_decode(jnp.asarray(t), c), toks))
+        port_spread.append(_decode_spread(
+            lambda t: model.prefill(params, _tok(t), pad_cache_to=16),
+            lambda t, c: model.decode_step(params, _tok(t), c,
+                                           torch.tensor([[7]]))[0], toks))
+    assert np.all(np.isfinite(port_spread)) and max(ref_spread) > 0
+    assert max(port_spread) <= 2 * max(ref_spread), (port_spread, ref_spread)

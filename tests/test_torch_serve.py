@@ -366,6 +366,11 @@ def test_profile_kinds():
                    "float const*, ...)") == "rglru_scan"
     assert kind_of("(anonymous namespace)::ssd_scan_kernel(float const*, "
                    "...)") == "ssd_scan"
+    for stage in ("prep", "states", "out", "short"):
+        assert kind_of(f"void (anonymous namespace)::ssd_scan_{stage}_kernel"
+                       f"<true>(float const*, ...)") == "ssd_scan"
+    assert kind_of("void (anonymous namespace)::ssd_scan_pass_kernel<4>("
+                   "float const*, ...)") == "ssd_scan"
     assert kind_of("nvjet_tst_128x256_64x4_1x2_h_bz_coopA_NNT") == "matmul"
     assert kind_of("sm90_xmma_gemm_bf16bf16_bf16f32_f32_tn_n") == "matmul"
     assert kind_of("void at::native::vectorized_elementwise_kernel<4, "
