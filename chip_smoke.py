@@ -57,11 +57,16 @@ on failure:
       decode logits within the bf16 tolerance and greedy tokens equal
       except at near ties;
 
-   The flash-attention kernel, the RG-LRU scan and the SSD scan are held
+   The RG-LRU scan is held bitwise against its plain version in phase 3
+   (it keeps the plain version's order) at nine cases (the serving
+   shapes, a ragged tile, C % 4 != 0, C below a block's width, one step,
+   a view not 16-byte aligned), with ptxas's registers and spills (a
+   spill fails the run), and one-call, back-to-back and on-card times
+   beside its bound.  The
+   flash-attention kernel and the SSD scan are held
    against their plain versions in phase 3 to a tolerance (f32: atol
-   3e-5, rtol 1e-4; bf16: atol 4e-3, rtol 2^-7, about one output ulp; the
-   RG-LRU scan: atol 1e-5, rtol 1e-4, and whether it is bitwise is
-   printed; the SSD scan: atol 5e-5, rtol 1e-4 at ``tests/test_kernels.py``'s
+   3e-5, rtol 1e-4; bf16: atol 4e-3, rtol 2^-7, about one output ulp;
+   the SSD scan: atol 5e-5, rtol 1e-4 at ``tests/test_kernels.py``'s
    shapes, 1e-4 of the largest |y| and |state| at mamba2-2.7b's), at
    ``tests/test_kernels.py``'s shapes and the serving runs' (attention in
    bf16 as served, and in f32; the SSD scan against its chunked form
@@ -107,6 +112,7 @@ from repro_torch.kernels.flit_pack import ref as pack_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.flit_sim import ops, ref  # noqa: E402
+from repro_torch.kernels.rglru_scan import kernel as lru_kernel  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as lru_ops  # noqa: E402
 from repro_torch.kernels.rglru_scan import ref as lru_ref  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
@@ -782,13 +788,25 @@ FA_PATH = "recurrentgemma-2b launcher prompt"
 FA_LARGEST = "recurrentgemma-2b long prompt"
 FA_TIMED = (FA_PATH, "smollm-360m launcher prompt", FA_LARGEST,
             "smollm-360m 512 tokens", "recurrentgemma-2b continuation")
-#: RG-LRU scan shapes [B, S, C]: recurrentgemma-2b's launcher prompt and
-#: long prompt, and larger; all timed
+#: RG-LRU scan shapes [B, S, C], each held bitwise: recurrentgemma-2b's
+#: launcher prompt and long prompt, the long prompt plus a ragged tile,
+#: four rows of 4096, C % 4 != 0 (the cp.async copies), C below one
+#: block's width, small shapes, one step, and a view one element into its
+#: storage (LRU_OFFSET: not 16-byte aligned, so cp.async)
 LRU_CASES = {"recurrentgemma-2b launcher prompt": (1, 7, 2560),
              "recurrentgemma-2b long prompt": (1, 2304, 2560),
-             "4 x 4096": (4, 4096, 2560)}
+             "long prompt + 1": (1, 2305, 2560),
+             "4 x 4096": (4, 4096, 2560),
+             "C 37": (2, 300, 37),
+             "C 12": (1, 129, 12),
+             "3 x 77 x 40": (3, 77, 40),
+             "one step": (2, 1, 8),
+             "offset view": (1, 256, 2560)}
+LRU_OFFSET = {"offset view": 1}
 LRU_PATH = "recurrentgemma-2b launcher prompt"
 LRU_LARGEST = "4 x 4096"
+#: timed three ways (one call, back to back, on the card alone)
+LRU_TIMED = (LRU_PATH, "recurrentgemma-2b long prompt", LRU_LARGEST)
 #: launches per prefill on the serving path (one per attention / recurrent
 #: layer) and per decode step (none: decode attention and the one-step
 #: recurrence are plain PyTorch)
@@ -876,7 +894,7 @@ def sdpa_ms(case, q, k, v, reps) -> dict:
 def ptxas_instances(log: str, kernel: str) -> dict:
     """ptxas's report of each instance of ``kernel`` in a build log:
     ``{"kernel<args>": {"registers": n, "spill_stores": bytes,
-    "spill_loads": bytes}}``."""
+    "spill_loads": bytes}}`` (``"kernel"`` where it is no template)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -886,6 +904,9 @@ def ptxas_instances(log: str, kernel: str) -> dict:
             if hit:
                 args = ", ".join(re.findall(r"Li(\d+)E", hit.group(2)))
                 name = f"{hit.group(1)}<{args}>"
+                out[name] = {}
+            elif re.search(rf"\d{kernel}E", m.group(1)):
+                name = kernel               # not a template
                 out[name] = {}
             continue
         if name is None:
@@ -902,10 +923,10 @@ def ptxas_instances(log: str, kernel: str) -> dict:
 
 
 def phase_lm_kernels():
-    """flash_attention_fwd and rglru_scan against their plain versions on
-    the card; timings at the serving path's shapes."""
+    """flash_attention_fwd against its plain version on the card; timings
+    at the serving path's shapes."""
     gen = torch.Generator(device=DEV).manual_seed(13)
-    records = {"flash_attention_fwd": {}, "rglru_scan": {}}
+    records = {"flash_attention_fwd": {}}
     log_text = _build.BUILD_LOG.get("flash_attention")
     if log_text is None:
         log("ptxas [flash_attention]: library was already built, no report")
@@ -969,34 +990,79 @@ def phase_lm_kernels():
                if "ms" in rec else ""))
     records["flash_attention_fwd"]["max_abs_err"] = err_all
 
-    err_all, bitwise = 0.0, True
+    return records
+
+
+def lru_bound(shape):
+    """Least time of one RG-LRU scan: log_a and b read and h written once
+    (12 bytes an element) against 3 f32 operations an element."""
+    n = shape[0] * shape[1] * shape[2]
+    t_bytes = 12.0 * n / PEAK_BYTES_PER_S * 1e3
+    t_ops = 3.0 * n / PEAK_F32_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_lru_kernel():
+    """rglru_scan against its plain version on the card, bitwise at every
+    case (the kernel keeps the plain version's order); ptxas's registers
+    and spills (a spill fails the run); one-call, back-to-back and
+    on-card times with the share of the bound."""
+    log_text = _build.BUILD_LOG.get("rglru_scan")
+    records = {}
+    if log_text is None:
+        log("ptxas [rglru_scan]: library was already built, no report")
+    else:
+        insts = ptxas_instances(log_text, "rglru_scan_kernel")
+        for name, rep in insts.items():
+            log(f"ptxas {name}: {rep.get('registers')} registers, "
+                f"{rep.get('spill_stores')} bytes spill stores, "
+                f"{rep.get('spill_loads')} bytes spill loads")
+        if len(insts) != 1:
+            raise AssertionError(f"rglru_scan: ptxas reported {len(insts)} "
+                                 f"kernel instances")
+        spills = [n for n, r in insts.items()
+                  if r.get("spill_stores", 1) or r.get("spill_loads", 1)]
+        if spills:
+            raise AssertionError(f"rglru_scan kernel spills: {spills}")
+        records["ptxas"] = insts
+    gen = torch.Generator(device=DEV).manual_seed(17)
+    err_all = 0.0
     for label, shape in LRU_CASES.items():
-        log_a = -torch.rand(shape, generator=gen, device=DEV) * 2.0
-        b = torch.randn(shape, generator=gen, device=DEV)
-        got = lru_ops.lru(log_a, b)
-        torch.cuda.synchronize()
-        want = lru_ref.lru_ref(log_a, b)
-        if not torch.allclose(got, want, atol=1e-5, rtol=1e-4):
-            raise AssertionError(f"rglru_scan {label}: differs from its plain "
-                                 f"version beyond atol 1e-5 rtol 1e-4")
-        err = float((got - want).abs().max().item())
-        same = bool(torch.equal(got, want))
-        err_all, bitwise = max(err_all, err), bitwise and same
+        off = LRU_OFFSET.get(label, 0)
         n = shape[0] * shape[1] * shape[2]
-        t_bytes = 12.0 * n / PEAK_BYTES_PER_S * 1e3
-        t_ops = 3.0 * n / PEAK_F32_OPS_PER_S * 1e3
-        rec = dict(shape=list(shape), max_abs_err=err, bitwise=same,
-                   ms=time_ms(lambda: lru_ops.lru(log_a, b), 20),
-                   plain_ms=time_ms(lambda: lru_ref.lru_ref(log_a, b), 3),
-                   bound_ms=max(t_bytes, t_ops),
-                   bound_by="bytes" if t_bytes >= t_ops else "operations")
-        records["rglru_scan"][label] = rec
-        log(f"kernel rglru_scan @ {label} {shape}: max |diff| vs plain {err} "
-            f"(bitwise equal: {same}); kernel {rec['ms']:.4f} ms, plain "
-            f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-            f"({rec['bound_by']})")
-    records["rglru_scan"]["max_abs_err"] = err_all
-    records["rglru_scan"]["bitwise"] = bitwise
+        log_a = (-torch.rand(n + off, generator=gen, device=DEV)
+                 * 2.0)[off:].view(shape)
+        b = torch.randn(n + off, generator=gen, device=DEV)[off:].view(shape)
+        p = lru_kernel.plan(shape, (log_a.data_ptr(), b.data_ptr()))
+        got = lru_ops.lru(log_a, b)
+        want = lru_ref.lru_ref(log_a, b)
+        err = hold(f"rglru_scan {label} {shape}", got, want)
+        err_all = max(err_all, err)
+        rec = dict(shape=list(shape), offset=off, max_abs_err=err,
+                   plan=p._asdict())
+        msg = ""
+        if label in LRU_TIMED:
+            call = lambda: lru_ops.lru(log_a, b)
+            rec["ms"] = time_ms(call, 20)
+            rec["stream_ms"] = stream_ms(call, 20)
+            rec["device_ms"] = kernel_ms(call, r"(rglru_scan)_kernel")[
+                "rglru_scan"]
+            rec["plain_ms"] = time_ms(lambda: lru_ref.lru_ref(log_a, b), 3)
+            rec["bound_ms"], rec["bound_by"] = lru_bound(shape)
+            rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+            rec["share_of_bound_device"] = rec["bound_ms"] / rec["device_ms"]
+            msg = (f"; one call {rec['ms']:.4f} ms, back to back "
+                   f"{rec['stream_ms']:.4f} ms, on the card "
+                   f"{rec['device_ms']:.4f} ms ({rec['share_of_bound']:.1%} "
+                   f"/ {rec['share_of_bound_device']:.1%} of the bound "
+                   f"{rec['bound_ms']:.4f} ms, {rec['bound_by']}), plain "
+                   f"{rec['plain_ms']:.4f} ms")
+        records[label] = rec
+        log(f"kernel rglru_scan @ {label} {shape}: bitwise equal to plain "
+            f"({p.route}, width {p.width}, {p.blocks} blocks, tile "
+            f"{p.tile} x {p.width}, {p.stages} stages){msg}")
+    records["max_abs_err"] = err_all
+    records["bitwise"] = True
     return records
 
 
@@ -1102,10 +1168,10 @@ def ssd_inputs(case, gen, slow=False, init=False):
             rn(h) * 0.3, rn(bsz, h, p, n) if init else None)
 
 
-def ssd_stage_ms(fn, calls: int = 5) -> dict:
-    """Device ms a call of each of the SSD scan's kernels (``prep``,
-    ``states``, ``pass``, ``out``, ``short``), from ``torch.profiler``
-    over ``calls`` calls."""
+def kernel_ms(fn, pattern: str, calls: int = 5) -> dict:
+    """Device ms a call of each kernel whose name matches ``pattern``, by
+    the pattern's first group, from ``torch.profiler`` over ``calls``
+    calls."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1115,12 +1181,12 @@ def ssd_stage_ms(fn, calls: int = 5) -> dict:
         torch.cuda.synchronize()
     out = {}
     for evt in prof.events():
-        m = re.search(r"ssd_scan_(\w+?)_kernel", evt.name)
+        m = re.search(pattern, evt.name)
         if evt.device_type == torch.autograd.DeviceType.CUDA and m:
             out[m.group(1)] = out.get(m.group(1), 0.0) + \
                 evt.time_range.elapsed_us() / 1e3 / calls
     if not out:
-        raise AssertionError("ssd_scan: the profiler saw no kernel")
+        raise AssertionError(f"the profiler saw no kernel {pattern}")
     return out
 
 
@@ -1174,8 +1240,8 @@ def phase_ssd_kernel():
                                                     chunk), 20)
             rec["stream_ms"] = stream_ms(lambda: ssd_ops.ssd(x, dt, b, c,
                                                              a_log, chunk))
-            rec["stage_ms"] = ssd_stage_ms(lambda: ssd_ops.ssd(
-                x, dt, b, c, a_log, chunk))
+            rec["stage_ms"] = kernel_ms(lambda: ssd_ops.ssd(
+                x, dt, b, c, a_log, chunk), r"ssd_scan_(\w+?)_kernel")
             rec["plain_ms"] = time_ms(plains["ssd_chunked"], 3)
             if "ssd_ref" in plains:
                 rec["oracle_ms"] = time_ms(plains["ssd_ref"], 1)
@@ -1558,7 +1624,8 @@ def lm_kernel_records(lm_records, serving):
             "timed": {label: {k: rec.get(k) for k in (
                 "ms", "plain_ms", "oracle_ms", "bound_ms", "bound_by",
                 "bound_f32_ms", "share_of_f32_bound", "stream_ms",
-                "stage_ms", "library_ms",
+                "stage_ms", "device_ms", "share_of_bound_device",
+                "library_ms",
                 "sdpa_ms", "share_of_bound", "tflops")
                 if k in rec}
                 for label, rec in rs.items()
@@ -1569,6 +1636,7 @@ def lm_kernel_records(lm_records, serving):
         })
     out[0]["ptxas"] = lm_records["flash_attention_fwd"].get("ptxas")
     out[1]["bitwise"] = lm_records["rglru_scan"]["bitwise"]
+    out[1]["ptxas"] = lm_records["rglru_scan"].get("ptxas")
     line = {run: {k: rec[k] for k in ("wall_s", "tokens", "tok_per_s",
                                       "peak_gib", "launcher_s") if k in rec}
             for run, rec in serving.items() if "launches" in rec}
@@ -1593,6 +1661,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     records = phase_kernels()
     lm_records = phase_lm_kernels()
+    lm_records["rglru_scan"] = phase_lru_kernel()
     lm_records["ssd_scan"] = phase_ssd_kernel()
     counts = phase_main_path()
     serving = phase_serving()

@@ -218,11 +218,21 @@ def test_flash_attention_close_to_plain(dev, b, k, g, sq, skv, hd, causal,
     torch.testing.assert_close(got.float(), want.float(), **tol)
 
 
-@pytest.mark.parametrize("shape", [(1, 2304, 2560), (3, 77, 40), (2, 1, 8)])
-def test_rglru_scan_equal_plain(dev, shape):
+@pytest.mark.parametrize("shape,offset", [
+    ((1, 7, 2560), 0), ((1, 2304, 2560), 0), ((1, 2305, 2560), 0),
+    ((4, 4096, 2560), 0), ((2, 300, 37), 0), ((1, 129, 12), 0),
+    ((3, 77, 40), 0), ((2, 1, 8), 0), ((1, 256, 2560), 1)])
+def test_rglru_scan_equal_plain(dev, shape, offset):
+    """Bitwise at the serving shapes, a tail tile (2305 steps), C % 4 != 0
+    (cp.async copies), C below one block's width, one step, and a view one
+    element into its storage (not 16-byte aligned: cp.async)."""
     gen = torch.Generator(device=dev).manual_seed(shape[1])
-    log_a = -torch.rand(shape, generator=gen, device=dev) * 2.0
-    b = torch.randn(shape, generator=gen, device=dev)
+    n = shape[0] * shape[1] * shape[2]
+    log_a = (-torch.rand(n + offset, generator=gen, device=dev)
+             * 2.0)[offset:].view(shape)
+    b = torch.randn(n + offset, generator=gen, device=dev)[offset:].view(
+        shape)
+    assert log_a.storage_offset() == offset and b.is_contiguous()
     lru_ops.reset_launches()
     got = lru_ops.lru(log_a, b)
     assert lru_ops.launches["rglru_scan"] == 1

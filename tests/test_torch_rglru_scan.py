@@ -72,3 +72,69 @@ def test_wrapper_rejects_bad_operands():
         ops.lru(x[0], x[0])
     with pytest.raises(ValueError, match="no kernel"):
         ops.lru(x.to("meta"), x.to("meta"))
+
+
+# -- the binding's host-side plan (a plain function; no card needed) --------
+
+#: 16-byte aligned addresses, as a fresh CUDA allocation gives them
+_ALIGNED = (1 << 20, 1 << 21)
+
+
+@pytest.mark.parametrize("shape,route,blocks", [
+    ((1, 7, 2560), "tma", 160),
+    ((1, 2304, 2560), "tma", 160),
+    ((1, 2305, 2560), "tma", 160),
+    ((4, 4096, 2560), "tma", 640),
+    ((2, 300, 37), "cp.async", 6),
+    ((1, 129, 12), "tma", 1),
+    ((3, 77, 40), "tma", 9),
+    ((2, 1, 8), "tma", 2),
+])
+def test_plan_at_the_card_shapes(shape, route, blocks):
+    """Route, block count, tile and ring of the shapes the card tests run:
+    blocks of 16 channels, so at B = 1, C = 2560 every one of the 132 SMs
+    gets one; C % 4 != 0 takes the cp.async copies; C = 12 is below one
+    block's width."""
+    from repro_torch.kernels.rglru_scan import kernel as k
+    p = k.plan(shape, _ALIGNED)
+    assert (p.route, p.width, p.blocks) == (route, 16, blocks)
+    assert (p.tile, p.stages) == (64, 4)
+    # the ring's operands in flight at B = 1, C = 2560: 160 blocks x 4
+    # stages x 8 KB = 5.1 MB, above the ~2.5-3 MB that 3.35 TB/s needs
+    if shape[0] == 1 and shape[2] == 2560:
+        assert p.blocks >= 132
+        assert p.blocks * p.stages * p.tile * p.width * 8 > 5.0e6
+
+
+def test_plan_of_an_offset_view_takes_cp_async():
+    """A view one element into its storage is contiguous but not 16-byte
+    aligned: no TMA map can describe it, so the ring is filled by
+    cp.async; the same tensor at offset 0 takes TMA."""
+    from repro_torch.kernels.rglru_scan import kernel as k
+    store = torch.zeros(1 * 256 * 2560 + 4)
+    view = store[1:1 + 256 * 2560].view(1, 256, 2560)
+    whole = store[:256 * 2560].view(1, 256, 2560)
+    assert view.is_contiguous() and view.storage_offset() == 1
+    base = 1 << 20                  # an aligned allocation's address
+    p = k.plan(view.shape, (base + 4 * view.storage_offset(),) * 2)
+    assert p.route == "cp.async" and p.blocks == 160
+    assert k.plan(whole.shape, (base, base)).route == "tma"
+    # one operand unaligned is enough
+    assert k.plan(whole.shape, (base, base + 4)).route == "cp.async"
+
+
+def test_probe_leaves_out_a_variant_whose_text_is_gone(tmp_path, capsys,
+                                                        monkeypatch):
+    """``launch/probe_rglru.py`` builds its variants by replacing text of
+    the kernel's source; a variant whose text is not there is reported and
+    left out, the others are built."""
+    from repro_torch.launch import probe_rglru
+    src = tmp_path / "rglru_scan.cu"
+    src.write_text("constexpr int W = 16;\nconstexpr int EXP_WARPS = 2;\n")
+    monkeypatch.setattr(probe_rglru, "SOURCE", src)
+    got = probe_rglru.variant_sources()
+    assert got["width 8"] == ("constexpr int W = 8;\n"
+                              "constexpr int EXP_WARPS = 2;\n")
+    assert "one exp warp" in got and "3 stages" not in got
+    assert "width 32, 3 stages" not in got       # one of its two texts gone
+    assert "'3 stages' left out" in capsys.readouterr().out
