@@ -11,23 +11,32 @@ on failure:
 3. kernel vs plain: every kernel against its plain PyTorch version on the
    card, bitwise (``torch.equal``), with CUDA-event timings of both: the
    flit-simulator kernels at the design-space paths' shapes and at about
-   2^20 cells, ``pack_flits`` at 64 and 2^20 lines with the unpack round
-   trip;
+   2^20 cells (the one-chunk kernels chunk by chunk over a run, timed one
+   call and on the card; the run kernels ``symmetric_run`` and
+   ``pipelining_run``, whole adaptive runs in one launch, against the
+   plain run's state rows, first converged chunks and exit chunk, timed
+   one call, back to back and on the card beside their bounds; ptxas's
+   registers, stack frame and spills of every flit kernel logged, a spill
+   fatal; the run kernels' two reciprocal divisions against the IEEE
+   quotient over all 2^46 pairs of f32 significands each, about 2 min),
+   ``pack_flits`` at 64 and 2^20 lines with the unpack round trip;
 4. main path, each path driven with the launch counts set to 0 just
    before it and read just after:
 
    a. the explorer's ``--bridge`` run on the card at full width, its
       summary held against ``experiments/golden/design_space_summary.json``
       (every section but the serving one; ``asymmetric_periodic``,
-      ``symmetric_chunk``);
+      ``symmetric_run``: one launch per adaptive symmetric run, each
+      runner's ``elapsed_s`` logged);
    b. a shallow-queue design space (backlogs 1, 2, 4 x 21 read
       fractions; ``symmetric_periodic``), its detected cells held bitwise
       against the fixed engine;
    c. the Fig-13 pipelining design space (k 1..8 x 2 link UIs x 3 device
-      UIs; ``pipelining_chunk``) against the same space on the CPU and the
+      UIs; ``pipelining_run``, one launch) against the same space on the
+      CPU and the
       card's fixed engine, and ``simulate_lpddr6_pipelining(4)`` = 1;
    d. the explorer's ``--sweep`` on the card against the CPU
-      (``symmetric_chunk``, ``asymmetric_periodic``);
+      (``symmetric_run``, ``asymmetric_periodic``);
    e. the quickstart's values on the card against the CPU;
    f. the Fig 8/9 flit data path: 2^16 lines packed (``pack_flits``) and
       unpacked, every line, header and checksum back;
@@ -111,6 +120,7 @@ from repro_torch.kernels.flit_pack import ops as pack_ops  # noqa: E402
 from repro_torch.kernels.flit_pack import ref as pack_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
+from repro_torch.kernels.flit_sim import kernel as flit_kernel  # noqa: E402
 from repro_torch.kernels.flit_sim import ops, ref  # noqa: E402
 from repro_torch.kernels.rglru_scan import kernel as lru_kernel  # noqa: E402
 from repro_torch.kernels.rglru_scan import ops as lru_ops  # noqa: E402
@@ -146,23 +156,37 @@ PIPE_STEP_OPS = 32
 PIPE_READ_ROWS = 3 + 11 + 1
 #: ... and of its report / convergence epilogue
 PIPE_REPORT_OPS = 20
+#: f32 operations of the symmetric chunk's epilogue (report, drift,
+#: convergence)
+SYM_REPORT_OPS = 60
+#: cycles of a symmetric step's critical path in the run kernel's SASS, at
+#: nominal latencies, not measured: rdata -> credit_r -> rq_elig -> tot_q
+#: -> its reciprocal -> sent_r -> resp -> g_resp -> rdata, 25 dependent
+#: operations, 24 FADD/FMUL/FFMA/FMNMX at 4 cycles and one MUFU.RCP at
+#: 16.  Only logged, as an estimate of the chain-latency bound of a run's
+#: steps (the bound that ranks a grid too small to fill the card)
+SYM_CHAIN_CYCLES = 24 * 4 + 16
+#: the adaptive runs of the main path: horizon, chunk and tolerance
+#: (ADAPTIVE_SIM at the flit simulators' default horizons)
+SYM_RUN = dict(K=16, chunk=128, tol=1e-3)
+PIPE_RUN = dict(K=8, chunk=64, tol=1e-3, n_lines=512)
 DEV = torch.device("cuda")
 F32 = torch.float32
 
-SOURCES = {"symmetric_chunk": "src/repro_torch/csrc/flit_sim.cu",
+SOURCES = {"symmetric_run": "src/repro_torch/csrc/flit_sim.cu",
            "asymmetric_periodic": "src/repro_torch/csrc/flit_sim.cu",
            "symmetric_periodic": "src/repro_torch/csrc/flit_sim.cu",
-           "pipelining_chunk": "src/repro_torch/csrc/flit_sim.cu",
+           "pipelining_run": "src/repro_torch/csrc/flit_sim.cu",
            "pack_flits": "src/repro_torch/csrc/flit_pack.cu",
            "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
            "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu",
            "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu"}
-REPLACES = {"symmetric_chunk": "src/repro/kernels/flit_sim/kernel.py:84",
+REPLACES = {"symmetric_run": "src/repro/kernels/flit_sim/kernel.py:84",
             "asymmetric_periodic":
                 "src/repro/kernels/flit_sim/kernel.py:105",
             "symmetric_periodic":
                 "src/repro/kernels/flit_sim/kernel.py:127",
-            "pipelining_chunk":
+            "pipelining_run":
                 "src/repro/kernels/flit_sim/kernel.py:152",
             "pack_flits": "src/repro/kernels/flit_pack/kernel.py:66",
             "flash_attention_fwd":
@@ -183,6 +207,13 @@ T0 = time.perf_counter()
 def log(msg: str) -> None:
     """Progress line with the seconds since start, flushed at once."""
     print(f"[{time.perf_counter() - T0:7.1f}s] {msg}", flush=True)
+
+
+def max_sm_clock_hz() -> float:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,"
+         "nounits"], capture_output=True, text=True, timeout=60, check=True)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def card_line() -> str:
@@ -370,8 +401,8 @@ def round_trip(name: str, flits, args) -> None:
 
 def check_symmetric_chunk(params, reps):
     """All 16 chunks of a run, kernel vs plain on identical inputs; times
-    the chunk of the middle of the run.  Returns (max_abs, ms, plain_ms,
-    inputs of the timed chunk)."""
+    the chunk of the middle of the run one call and on the card.  Returns
+    (max_abs, ms, plain_ms, card_ms)."""
     err, timed = 0.0, None
     for k, (state, hist, scal) in enumerate(chunk_steps(params), 1):
         got = ops.symmetric_chunk(params, state, hist, scal, chunk=128)
@@ -381,16 +412,18 @@ def check_symmetric_chunk(params, reps):
         if k == 8:
             timed = (state, hist, scal)
     state, hist, scal = timed
-    ms = time_ms(lambda: ops.symmetric_chunk(params, state, hist, scal,
-                                             chunk=128), reps)
+    call = lambda: ops.symmetric_chunk(params, state, hist, scal, chunk=128)
+    ms = time_ms(call, reps)
+    card = kernel_ms(call, r"(symmetric_chunk_kernel)")
     plain = time_ms(lambda: ref.symmetric_chunk_compute(
         params, state, hist, scal, chunk=128), max(reps // 5, 2))
-    return err, ms, plain
+    return err, ms, plain, card["symmetric_chunk_kernel"]
 
 
 def check_pipelining_chunk(params, reps):
     """All 8 chunks of a run, kernel vs plain on identical inputs; times
-    chunk 4 (the first that may exit).  Returns (max_abs, ms, plain_ms)."""
+    chunk 4 (the first that may exit) one call and on the card.  Returns
+    (max_abs, ms, plain_ms, card_ms)."""
     err, timed = 0.0, None
     for k, (state, hist, scal) in enumerate(pipe_steps(params), 1):
         got = ops.pipelining_chunk(params, state, hist, scal, chunk=64)
@@ -400,11 +433,42 @@ def check_pipelining_chunk(params, reps):
         if k == 4:
             timed = (state, hist, scal)
     state, hist, scal = timed
-    ms = time_ms(lambda: ops.pipelining_chunk(params, state, hist, scal,
-                                              chunk=64), reps)
+    call = lambda: ops.pipelining_chunk(params, state, hist, scal, chunk=64)
+    ms = time_ms(call, reps)
+    card = kernel_ms(call, r"(pipelining_chunk_kernel)")
     plain = time_ms(lambda: ref.pipelining_chunk_compute(
         params, state, hist, scal, chunk=64), max(reps // 5, 2))
-    return err, ms, plain
+    return err, ms, plain, card["pipelining_chunk_kernel"]
+
+
+def check_run(name, run, plain, reps):
+    """A whole adaptive run, kernel vs plain run on the same operands:
+    the state rows, each cell's first converged chunk and the exit chunk
+    bitwise.  Returns a record: max_abs_err, one call, back to back and
+    on-card ms, the plain run's ms and the exit chunk."""
+    got, want = run(), plain()
+    err = max(hold(f"{name} {what}", g, w) for what, g, w in
+              zip(("state rows", "conv_at", "exit chunk"), got, want))
+    return dict(max_abs_err=err, k_exit=int(want[2].item()),
+                ms=time_ms(run, reps), back_to_back_ms=stream_ms(run),
+                card_ms=kernel_ms(run, rf"({name}_kernel)")[f"{name}_kernel"],
+                plain_ms=time_ms(plain, max(reps // 10, 2)))
+
+
+def check_symmetric_run(params, reps):
+    budget = flitsim._escalation_budget(params.shape[1], SYM_RUN["chunk"],
+                                        SYM_RUN["K"] * SYM_RUN["chunk"])
+    return check_run(
+        "symmetric_run",
+        lambda: ops.symmetric_run(params, budget=budget, **SYM_RUN),
+        lambda: ref.symmetric_run_compute(params, budget=budget, **SYM_RUN),
+        reps)
+
+
+def check_pipelining_run(params, reps):
+    return check_run(
+        "pipelining_run", lambda: ops.pipelining_run(params, **PIPE_RUN),
+        lambda: ref.pipelining_run_compute(params, **PIPE_RUN), reps)
 
 
 def check_pack(n: int, reps: int):
@@ -479,13 +543,26 @@ def phase_kernels():
         p = ops_in["symmetric_chunk"]
         cells = p.shape[1]
         log(f"checking symmetric_chunk @ {label} ({cells} cells)")
-        err, ms, plain = check_symmetric_chunk(p, reps)
+        err, ms, plain, card = check_symmetric_chunk(p, reps)
         b, by = bound_ms(4.0 * (3 * ref.SYM_ROWS * cells + ref.SCAL_COLS
                                 + ref.SYM_ROWS * cells),
                          cells * (128 * (SYM_STEP_OPS + 4) + 60))
         records.setdefault(label, {})["symmetric_chunk"] = dict(
-            cells=cells, max_abs_err=err, ms=ms, plain_ms=plain,
-            bound_ms=b, bound_by=by)
+            cells=cells, max_abs_err=err, ms=ms, card_ms=card,
+            plain_ms=plain, bound_ms=b, bound_by=by)
+        log(f"checking symmetric_run @ {label} ({cells} cells)")
+        r = check_symmetric_run(p, reps)
+        steps = r["k_exit"] * SYM_RUN["chunk"]
+        b, by = bound_ms(4.0 * (2 * ref.SYM_ROWS + 1) * cells,
+                         cells * (steps * (SYM_STEP_OPS + 4)
+                                  + r["k_exit"] * SYM_REPORT_OPS))
+        records[label]["symmetric_run"] = dict(
+            cells=cells, bound_ms=b, bound_by=by, **r)
+        log(f"symmetric_run @ {label}: chain-latency estimate "
+            f"{steps * SYM_CHAIN_CYCLES / max_sm_clock_hz() * 1e3:.4f} ms "
+            f"({steps} steps x {SYM_CHAIN_CYCLES} cycles at nominal "
+            f"latencies, not measured; the card took "
+            f"{r['card_ms']:.4f} ms)")
 
         p = ops_in["asymmetric_periodic"]
         cells = p.shape[1]
@@ -522,13 +599,21 @@ def phase_kernels():
         p = ops_in["pipelining_chunk"]
         cells = p.shape[1]
         log(f"checking pipelining_chunk @ {label} ({cells} cells)")
-        err, ms, plain = check_pipelining_chunk(p, reps)
+        err, ms, plain, card = check_pipelining_chunk(p, reps)
         b, by = bound_ms(4.0 * ((PIPE_READ_ROWS + ref.PIPE_ROWS) * cells
                                 + ref.SCAL_COLS),
                          cells * (64 * PIPE_STEP_OPS + PIPE_REPORT_OPS))
         records[label]["pipelining_chunk"] = dict(
-            cells=cells, max_abs_err=err, ms=ms, plain_ms=plain,
-            bound_ms=b, bound_by=by)
+            cells=cells, max_abs_err=err, ms=ms, card_ms=card,
+            plain_ms=plain, bound_ms=b, bound_by=by)
+        log(f"checking pipelining_run @ {label} ({cells} cells)")
+        r = check_pipelining_run(p, reps)
+        b, by = bound_ms(4.0 * (2 * ref.PIPE_ROWS + 1) * cells,
+                         cells * r["k_exit"] * (PIPE_RUN["chunk"]
+                                                * PIPE_STEP_OPS
+                                                + PIPE_REPORT_OPS))
+        records[label]["pipelining_run"] = dict(
+            cells=cells, bound_ms=b, bound_by=by, **r)
 
         if label == "path":
             err, ms, plain, flits = check_pack(64, reps)
@@ -548,11 +633,68 @@ def phase_kernels():
             cells=n, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
             bound_by=by)
         for name, r in records[label].items():
+            run = (f", back to back {r['back_to_back_ms']:.4f} ms, on the "
+                   f"card {r['card_ms']:.4f} ms, exit chunk {r['k_exit']}"
+                   if "k_exit" in r
+                   else f", on the card {r['card_ms']:.4f} ms"
+                   if "card_ms" in r else "")
             log(f"kernel {name} @ {label} ({r['cells']} cells/lines): bitwise "
-                  f"equal to plain; kernel {r['ms']:.4f} ms, plain "
+                  f"equal to plain; kernel {r['ms']:.4f} ms{run}, plain "
                   f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
                   f"({r['bound_by']})")
     return records
+
+
+#: the flit-simulator kernels whose ptxas report ``flit_ptxas`` logs
+FLIT_KERNELS = ("symmetric_chunk_kernel", "symmetric_run_kernel",
+                "pipelining_chunk_kernel", "pipelining_run_kernel",
+                "asymmetric_periodic_kernel", "symmetric_periodic_kernel")
+
+
+def flit_ptxas() -> None:
+    """Log ptxas's registers, stack frame (local memory) and spills of
+    every flit-simulator kernel; a spill in a chunk or run kernel fails
+    the run."""
+    text = _build.BUILD_LOG.get("flit_sim")
+    if text is None:
+        log("ptxas [flit_sim]: library was already built, no report")
+        return
+    report = {}
+    for kernel in FLIT_KERNELS:
+        report.update(ptxas_instances(text, kernel))
+    log(f"ptxas, flit kernels: {json.dumps(report)}")
+    for name, r in report.items():
+        if ("_chunk_kernel" in name or "_run_kernel" in name) and \
+                (r.get("spill_stores") or r.get("spill_loads")):
+            raise AssertionError(f"ptxas spills in {name}: {r}")
+    if not any("_run_kernel" in name for name in report):
+        raise AssertionError("no run kernel in ptxas's report")
+
+
+def phase_division() -> dict:
+    """The run kernels' divisions (by a cell constant; by the varying
+    ``tot_q``, with the approximate reciprocal's scaling over the
+    exponents -50..50) against ``__fdiv_rn`` over every pair of f32
+    significands in [1, 2), 2^46 pairs each: the certificate that the
+    reciprocal division is the IEEE quotient over its whole range.  Fails
+    on any differing pair."""
+    out = {}
+    for varying in (False, True):
+        t0 = time.perf_counter()
+        bad = 0
+        for lo in range(0, 1 << 23, 1 << 16):
+            d = torch.arange(lo, lo + (1 << 16), dtype=torch.int32,
+                             device=DEV) | 0x3F800000
+            bad += flit_kernel.division_check(d, varying=varying)
+        what = "by tot_q" if varying else "by a cell constant"
+        if bad:
+            raise AssertionError(f"division {what}: {bad} significand "
+                                 f"pairs differ from the IEEE quotient")
+        out[what] = {"pairs": 1 << 46, "differ": 0,
+                     "seconds": time.perf_counter() - t0}
+        log(f"division {what}: equal to __fdiv_rn on all 2^46 significand "
+            f"pairs ({out[what]['seconds']:.1f} s)")
+    return out
 
 
 # -- phase 4: the main path ---------------------------------------------------
@@ -566,14 +708,58 @@ def load_summarize():
     return mod.summarize
 
 
+@contextlib.contextmanager
+def runner_times(store: dict):
+    """Records, under each fused runner's name, every call's ``elapsed_s``,
+    cells, cycles run, launches and stragglers (``last_run_info``)."""
+    saved = {}
+    for name, fam in (("_run_symmetric_fused", "flitsim.symmetric"),
+                      ("_run_pipelining_fused", "flitsim.pipelining")):
+        fn = saved[name] = getattr(flitsim, name)
+
+        def wrapped(*a, _fn=fn, _fam=fam, _name=name, **kw):
+            out = _fn(*a, **kw)
+            info = flitsim.last_run_info()[_fam]
+            store.setdefault(_name, []).append(
+                {k: info[k] for k in ("elapsed_s", "cells", "cycles_run",
+                                      "launches", "stragglers")})
+            return out
+        setattr(flitsim, name, wrapped)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(flitsim, name, fn)
+
+
+def one_launch_per_run(path: str, counts: dict, runs: dict) -> str:
+    """Fail unless the path launched each run kernel once per adaptive run
+    of its runner and no one-chunk kernel; returns the runners'
+    ``elapsed_s`` for the log."""
+    for kernel, runner in (("symmetric_run", "_run_symmetric_fused"),
+                           ("pipelining_run", "_run_pipelining_fused")):
+        n = len(runs.get(runner, []))
+        if counts[kernel] != n:
+            raise AssertionError(f"{path}: {counts[kernel]} {kernel} "
+                                 f"launches for {n} adaptive runs")
+    for kernel in ("symmetric_chunk", "pipelining_chunk"):
+        if counts[kernel]:
+            raise AssertionError(f"{path} launched {kernel}")
+    return json.dumps({name: [{k: r[k] for k in ("cells", "cycles_run",
+                                                 "elapsed_s")}
+                              for r in rs] for name, rs in runs.items()})
+
+
 def phase_main_path():
     golden = json.loads(
         (ROOT / "experiments/golden/design_space_summary.json").read_text())
     summarize = load_summarize()
     log("main path: bridge on the card")
+    runs: dict = {}
     reset_counts()
     t0 = time.perf_counter()
-    ds = bridge_mode(device="cuda", verbose=False)
+    with runner_times(runs):
+        ds = bridge_mode(device="cuda", verbose=False)
     torch.cuda.synchronize()
     bridge_s = time.perf_counter() - t0
     bridge_counts = read_counts()
@@ -583,21 +769,27 @@ def phase_main_path():
     if bad:
         raise AssertionError(f"bridge summary differs from the golden in "
                              f"sections {bad}")
-    for name in ("asymmetric_periodic", "symmetric_chunk"):
+    for name in ("asymmetric_periodic", "symmetric_run"):
         if bridge_counts[name] <= 0:
             raise AssertionError(f"the bridge never launched {name}")
+    elapsed = one_launch_per_run("the bridge", bridge_counts, runs)
     held = sorted(k for k in golden if k != "serving_frontier")
     log(f"main path: bridge on the card in {bridge_s:.2f} s, summary "
-          f"equals the golden on {held}; launches {bridge_counts}")
+          f"equals the golden on {held}; launches {bridge_counts}; "
+          f"adaptive runs {elapsed}")
 
     # shallow queues: the symmetric periodic detector's path
     fracs = np.linspace(0.0, 1.0, 21)
+    runs = {}
     reset_counts()
-    res = DesignSpace([axis("read_fraction", fracs),
-                       axis("backlog", [1.0, 2.0, 4.0])], sim=ADAPTIVE_SIM,
-                      device="cuda").evaluate(metrics=("sim_efficiency",))
+    with runner_times(runs):
+        res = DesignSpace([axis("read_fraction", fracs),
+                           axis("backlog", [1.0, 2.0, 4.0])],
+                          sim=ADAPTIVE_SIM, device="cuda").evaluate(
+                              metrics=("sim_efficiency",))
     torch.cuda.synchronize()
     shallow_counts = read_counts()
+    one_launch_per_run("the shallow-queue space", shallow_counts, runs)
     if shallow_counts["symmetric_periodic"] <= 0:
         raise AssertionError("the shallow-queue space never launched "
                              "symmetric_periodic")
@@ -629,16 +821,18 @@ def phase_fig13():
     axes = [axis("k", FIG13_KS), axis("ucie_line_ui", FIG13_US),
             axis("device_line_ui", FIG13_DS)]
     log("main path: Fig-13 pipelining space on the card")
+    runs: dict = {}
     reset_counts()
     t0 = time.perf_counter()
-    res = DesignSpace(axes, sim=ADAPTIVE_SIM, device="cuda").evaluate()
+    with runner_times(runs):
+        res = DesignSpace(axes, sim=ADAPTIVE_SIM, device="cuda").evaluate()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    n = counts["pipelining_chunk"]
-    if not 0 < n <= 8:
-        raise AssertionError(f"the Fig-13 space launched pipelining_chunk "
-                             f"{n} times (want 1..8)")
+    if counts["pipelining_run"] != 1:
+        raise AssertionError(f"the Fig-13 space launched pipelining_run "
+                             f"{counts['pipelining_run']} times (want 1)")
+    elapsed = one_launch_per_run("the Fig-13 space", counts, runs)
     util = res["utilization"].values
     cpu = DesignSpace(axes, sim=ADAPTIVE_SIM, device="cpu").evaluate()
     err_cpu = close("Fig-13 card vs CPU", util,
@@ -654,7 +848,8 @@ def phase_fig13():
             ok = np.flatnonzero(util[:, a, b] >= 1.0 - 1e-3)
             sat[f"u={u:g},d={d:g}"] = int(FIG13_KS[ok[0]]) if ok.size \
                 else None
-    log(f"main path: Fig-13 space in {wall:.3f} s, launches {counts}; "
+    log(f"main path: Fig-13 space in {wall:.3f} s, launches {counts}, "
+        f"adaptive runs {elapsed}; "
         f"card vs CPU max |diff| {err_cpu}, vs fixed {err_fixed}; "
         f"simulate_lpddr6_pipelining(4) = {u4}; smallest saturating k "
         f"per (ucie_line_ui, device_line_ui): {sat}")
@@ -664,15 +859,18 @@ def phase_fig13():
 def phase_sweep():
     """The explorer's ``--sweep`` on the card against the CPU."""
     log("main path: --sweep on the card")
+    runs: dict = {}
     reset_counts()
     t0 = time.perf_counter()
-    card = sweep_mode(device="cuda", verbose=False)
+    with runner_times(runs):
+        card = sweep_mode(device="cuda", verbose=False)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    for name in ("symmetric_chunk", "asymmetric_periodic"):
+    for name in ("symmetric_run", "asymmetric_periodic"):
         if counts[name] <= 0:
             raise AssertionError(f"the sweep never launched {name}")
+    one_launch_per_run("the sweep", counts, runs)
     cpu = sweep_mode(device="cpu", verbose=False)
     for key in ("regimes", "catalog_regimes", "protocols"):
         if card[key] != cpu[key]:
@@ -893,8 +1091,9 @@ def sdpa_ms(case, q, k, v, reps) -> dict:
 
 def ptxas_instances(log: str, kernel: str) -> dict:
     """ptxas's report of each instance of ``kernel`` in a build log:
-    ``{"kernel<args>": {"registers": n, "spill_stores": bytes,
-    "spill_loads": bytes}}`` (``"kernel"`` where it is no template)."""
+    ``{"kernel<args>": {"registers": n, "stack": bytes, "spill_stores":
+    bytes, "spill_loads": bytes}}`` (``"kernel"`` where it is no
+    template)."""
     out, name = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -911,11 +1110,12 @@ def ptxas_instances(log: str, kernel: str) -> dict:
             continue
         if name is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
         if m:
-            out[name]["spill_stores"] = int(m.group(1))
-            out[name]["spill_loads"] = int(m.group(2))
+            out[name]["stack"] = int(m.group(1))
+            out[name]["spill_stores"] = int(m.group(2))
+            out[name]["spill_loads"] = int(m.group(3))
         m = re.search(r"Used (\d+) registers", line)
         if m:
             out[name]["registers"] = int(m.group(1))
@@ -1175,19 +1375,20 @@ def kernel_ms(fn, pattern: str, calls: int = 5) -> dict:
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
     out = {}
-    for evt in prof.events():
-        m = re.search(pattern, evt.name)
-        if evt.device_type == torch.autograd.DeviceType.CUDA and m:
-            out[m.group(1)] = out.get(m.group(1), 0.0) + \
-                evt.time_range.elapsed_us() / 1e3 / calls
-    if not out:
-        raise AssertionError(f"the profiler saw no kernel {pattern}")
-    return out
+    for _ in range(3):          # the profiler now and then records nothing
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        for evt in prof.events():
+            m = re.search(pattern, evt.name)
+            if evt.device_type == torch.autograd.DeviceType.CUDA and m:
+                out[m.group(1)] = out.get(m.group(1), 0.0) + \
+                    evt.time_range.elapsed_us() / 1e3 / calls
+        if out:
+            return out
+    raise AssertionError(f"the profiler saw no kernel {pattern}")
 
 
 def phase_ssd_kernel():
@@ -1656,10 +1857,12 @@ def main() -> None:
     log(f"build: {secs} s (wall {time.perf_counter() - t0:.1f} s)")
     for name, text in _build.BUILD_LOG.items():
         log(f"ptxas [{name}]:\n{text.strip()}")
+    flit_ptxas()
 
     torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 is f32
     torch.backends.cudnn.allow_tf32 = False
     records = phase_kernels()
+    phase_division()
     lm_records = phase_lm_kernels()
     lm_records["rglru_scan"] = phase_lru_kernel()
     lm_records["ssd_scan"] = phase_ssd_kernel()
@@ -1668,12 +1871,12 @@ def main() -> None:
 
     big = records["2^20 cells"]
     #: the main-path run each kernel's launch count is read from
-    path_of = {"asymmetric_periodic": "bridge", "symmetric_chunk": "bridge",
-               "symmetric_periodic": "shallow", "pipelining_chunk": "fig13",
+    path_of = {"asymmetric_periodic": "bridge", "symmetric_run": "bridge",
+               "symmetric_periodic": "shallow", "pipelining_run": "fig13",
                "pack_flits": "flit_pack"}
     kernels = []
     for name in ("asymmetric_periodic", "symmetric_periodic",
-                 "symmetric_chunk", "pipelining_chunk", "pack_flits"):
+                 "symmetric_run", "pipelining_run", "pack_flits"):
         r = big[name]
         launches = counts[path_of[name]][name]
         kernels.append({
@@ -1689,6 +1892,20 @@ def main() -> None:
             "path_plain_ms": records["path"][name]["plain_ms"],
             "path_bound_ms": records["path"][name]["bound_ms"],
         })
+        if "k_exit" in r:           # a run kernel, and its one-chunk kernel
+            one = name.replace("_run", "_chunk")
+            kernels[-1].update({
+                f"{where}{key}": rec[key]
+                for where, rec in (("", r), ("path_", records["path"][name]))
+                for key in ("back_to_back_ms", "card_ms", "k_exit")
+                if key in rec})
+            kernels[-1]["one_chunk"] = {
+                "name": one, "ms": big[one]["ms"],
+                "card_ms": big[one]["card_ms"],
+                "path_ms": records["path"][one]["ms"],
+                "path_card_ms": records["path"][one]["card_ms"],
+                "bound_ms": big[one]["bound_ms"],
+                "path_bound_ms": records["path"][one]["bound_ms"]}
     kernels += lm_kernel_records(lm_records, serving)
     print(card)
     print(json.dumps({"kernels": kernels}))

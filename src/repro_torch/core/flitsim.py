@@ -26,14 +26,13 @@ Execution modes (:class:`repro_torch.core.space.SimConfig`):
     PyTorch core on mostly aperiodic grids;
   - symmetric grids whose largest backlog is at most
     ``SYM_PERIODIC_MAX_BACKLOG`` first try the exact ``symmetric_periodic``
-    detector; everything else runs the host-driven chunk loop, one
-    ``symmetric_chunk`` launch per chunk (the reference's
-    ``engine="pallas"`` schedule — the port has no XLA ``while_loop``
-    core);
-  - pipelining grids run the host-driven chunk loop, one
-    ``pipelining_chunk`` launch per chunk, while the device ready table
-    fits the kernel's ``PIPE_MAX_K`` rows; wider tables run a chunked
-    plain PyTorch core.
+    detector; everything else runs the chunked schedule of the
+    reference's ``engine="pallas"`` (the port has no XLA ``while_loop``
+    core) in ONE ``symmetric_run`` launch, which advances chunk after
+    chunk and takes the early exit on the card;
+  - pipelining grids run the same way, one ``pipelining_run`` launch,
+    while the device ready table fits the kernel's ``PIPE_MAX_K`` rows;
+    wider tables run a chunked plain PyTorch core.
 
   Unconverged stragglers (large grids only) and undetected periodic cells
   are re-simulated exactly at the full fixed horizon.
@@ -390,8 +389,6 @@ def _asymmetric_cells_grid(pcells, xs, ys, *, n_accesses: int):
 
 # -- adaptive schedule --------------------------------------------------------
 
-#: chunks between pool snapshots for the drift guard
-_DRIFT_SPAN = 3
 #: max pool movement per chunk (slots) still considered "steady"
 _DRIFT_TOL_SLOTS = 2.0
 #: never exit before this many chunks (two comparable reports + warm-up)
@@ -639,61 +636,24 @@ def _run_symmetric_periodic(pstack, x, y, backlogs, horizon: int):
 
 def _run_symmetric_fused(pstack, x, y, backlogs, horizon: int, chunk: int,
                          sim: SimConfig):
-    """Host-driven adaptive symmetric loop on the fused chunk kernel (the
-    reference's ``_run_symmetric_pallas``): one ``symmetric_chunk`` launch
-    per chunk; report / drift / convergence are evaluated in the kernel
-    and the host reads back one flag row per chunk to steer the early
-    exit.  Chunk-boundary histories stay a host-side list of device rows;
-    the kernel receives exactly the rows the report formula needs."""
+    """Adaptive symmetric run on the fused run kernel (the reference's
+    ``_run_symmetric_pallas`` schedule): ONE ``symmetric_run`` launch takes
+    every cell chunk after chunk, evaluating report / drift / convergence
+    and the early exit on the card; the host reads the flags back once and
+    escalates the stragglers."""
     from repro_torch.kernels.flit_sim import ops as fs_ops
-    from repro_torch.kernels.flit_sim import ref as fs_ref
     dev = x.device
     P, B, M = pstack.g_slots.shape[0], backlogs.shape[0], x.shape[0]
     cells = P * B * M
-    K = horizon // chunk
-    K0 = max(K // 4, 1)
-    min_k = max(_MIN_EXIT_CHUNKS, K0 + 1)
     budget = _escalation_budget(cells, chunk, horizon)
     t0 = time.perf_counter()
-    params = _sym_param_rows(pstack, x, y, backlogs)
-    state = torch.zeros((fs_ref.SYM_ROWS, cells), dtype=F32, device=dev)
-    zrow = torch.zeros((1, cells), dtype=F32, device=dev)
-    z5 = torch.zeros((5, cells), dtype=F32, device=dev)
-    z6 = torch.zeros((6, cells), dtype=F32, device=dev)
-    Dh, TDh, Ph = [zrow], [zrow], [z5]
-
-    def hist_for(k: int):
-        m = max(k - 4, (k + 1) // 2)
-        mid = (m + k + 1) // 2
-        return m, mid, torch.cat([
-            Ph[max(k - _DRIFT_SPAN, 0)],
-            Dh[m] if m < k else zrow, TDh[m] if m < k else zrow,
-            Dh[mid] if mid < k else zrow, TDh[mid] if mid < k else zrow,
-            Dh[K0] if k > K0 else zrow, z6])
-
-    def scal_for(k: int, m: int, mid: int):
-        return _scal_row([k, m, mid, K0, K, chunk, sim.tol,
-                          1.0 if (k >= min_k and k > _DRIFT_SPAN) else 0.0,
-                          1.0 if k >= K else 0.0, _DRIFT_TOL_SLOTS], dev)
-
-    conv_at = np.full(cells, -1, np.int32)
-    conv_np = np.zeros(cells, bool)
-    k = 0
-    while k < K:
-        k += 1
-        m, mid, hist = hist_for(k)
-        state = fs_ops.symmetric_chunk(params, state, hist,
-                                       scal_for(k, m, mid), chunk=chunk)
-        Dh.append(state[7:8])
-        TDh.append(state[8:9])
-        Ph.append(state[0:5])
-        conv_np = (state[11] > 0.5).cpu().numpy()
-        conv_at[(conv_at < 0) & conv_np] = k
-        if int((~conv_np).sum()) <= budget:
-            break
+    state, conv_at, k_exit = fs_ops.symmetric_run(
+        _sym_param_rows(pstack, x, y, backlogs), K=horizon // chunk,
+        chunk=chunk, tol=sim.tol, budget=budget)
+    conv_at, conv_np, k = _read_run(state, conv_at, k_exit)
     rep = state[10].reshape(P, B, M)
     stragglers = int((~conv_np).sum()) if budget > 0 else 0
-    launches = k
+    launches = 1
     if stragglers:
         rep = _escalate_stragglers(
             functools.partial(_symmetric_cells_grid, n_flits=horizon),
@@ -706,6 +666,15 @@ def _run_symmetric_fused(pstack, x, y, backlogs, horizon: int, chunk: int,
                      conv_at.reshape(P, B, M), stragglers, engine="fused",
                      launches=launches, elapsed_s=time.perf_counter() - t0)
     return rep
+
+
+def _read_run(state, conv_at, k_exit):
+    """One host read of a run's result: ``(conv_at, the exit chunk's
+    flags, k_exit)`` as numpy arrays and an int."""
+    cells = conv_at.shape[0]
+    host = torch.cat([conv_at, (state[11] > 0.5).to(torch.int32),
+                      k_exit]).cpu().numpy()
+    return host[:cells], host[cells:2 * cells] > 0, int(host[-1])
 
 
 def _asymmetric_grid_adaptive(pstack, x, y, *, n_accesses: int, chunk: int,
@@ -750,47 +719,26 @@ def _asymmetric_grid_adaptive(pstack, x, y, *, n_accesses: int, chunk: int,
 
 def _run_pipelining_fused(ks, ucie_line_uis, device_line_uis,
                           horizon: int, chunk: int, sim: SimConfig):
-    """Host-driven adaptive pipelining loop on the fused chunk kernel (the
-    reference's ``_run_pipelining_pallas``): one ``pipelining_chunk``
-    launch per chunk, the host reading one flag row per chunk.  No drift
-    guard or escalation: the rotation report converges monotonically."""
+    """Adaptive pipelining run on the fused run kernel (the reference's
+    ``_run_pipelining_pallas`` schedule): ONE ``pipelining_run`` launch,
+    the run ending on the card when every cell has converged, one host
+    read.  No drift guard or escalation: the rotation report converges
+    monotonically."""
     from repro_torch.kernels.flit_sim import ops as fs_ops
-    from repro_torch.kernels.flit_sim import ref as fs_ref
     dev = ucie_line_uis.device
     Kk, U, Dn = (ks.shape[0], ucie_line_uis.shape[0],
                  device_line_uis.shape[0])
-    cells = Kk * U * Dn
-    K = horizon // chunk
-    min_k = min(_MIN_EXIT_CHUNKS, K)
     t0 = time.perf_counter()
-    params = _pipe_param_rows(ks, ucie_line_uis, device_line_uis)
-    state = torch.zeros((fs_ref.PIPE_ROWS, cells), dtype=F32, device=dev)
-    hist = torch.zeros((fs_ref.ASYM_ROWS, cells), dtype=F32, device=dev)
-
-    def scal_for(k: int):
-        return _scal_row([k, K, chunk, sim.tol,
-                          1.0 if k >= min_k else 0.0,
-                          1.0 if k >= K else 0.0, horizon], dev)
-
-    conv_at = np.full(cells, -1, np.int32)
-    k = 0
-    while k < K:
-        k += 1
-        state = fs_ops.pipelining_chunk(params, state, hist, scal_for(k),
-                                        chunk=chunk)
-        if k == 1:      # T1 anchor for the linear-growth extrapolation
-            hist = torch.cat([state[8:9], torch.zeros(
-                (fs_ref.ASYM_ROWS - 1, cells), dtype=F32, device=dev)])
-        conv_np = (state[11] > 0.5).cpu().numpy()
-        conv_at[(conv_at < 0) & conv_np] = k
-        if int((~conv_np).sum()) == 0:
-            break
+    state, conv_at, k_exit = fs_ops.pipelining_run(
+        _pipe_param_rows(ks, ucie_line_uis, device_line_uis),
+        K=horizon // chunk, chunk=chunk, tol=sim.tol, n_lines=horizon)
+    conv_at, _, k = _read_run(state, conv_at, k_exit)
     rep = state[10].reshape(Kk, U, Dn)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     _record_adaptive("flitsim.pipelining", horizon, chunk, k,
                      conv_at.reshape(Kk, U, Dn), 0, engine="fused",
-                     launches=k, elapsed_s=time.perf_counter() - t0)
+                     launches=1, elapsed_s=time.perf_counter() - t0)
     return rep
 
 

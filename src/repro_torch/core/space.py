@@ -35,8 +35,8 @@ class SimConfig:
     """Execution config for the flit-simulation engines.
 
     ``mode="fixed"`` runs the full fixed horizon.  ``mode="adaptive"``
-    runs the period-exact detectors and the fused per-chunk loop (one
-    ``symmetric_chunk`` launch per ``chunk`` cycles), stopping as soon as
+    runs the period-exact detectors and the fused chunked loop (one
+    ``symmetric_run`` launch, ``chunk`` cycles a chunk), stopping as soon as
     every cell's reconstructed fixed-window estimate is stable to ``tol``
     (relative), or at the horizon.  ``max_cycles`` overrides the
     per-family horizon; ``chunk`` is shrunk per family to an exact

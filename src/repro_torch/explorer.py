@@ -5,7 +5,7 @@ of ``examples/memsys_explorer.py``.
     python -m repro_torch.explorer --sweep [--device cpu]
 
 Sweep mode flit-simulates every protocol over a dense read-fraction x
-backlog grid with the adaptive engine (the ``symmetric_chunk`` and
+backlog grid with the adaptive engine (the ``symmetric_run`` and
 ``asymmetric_periodic`` kernels on the card), prints the best protocol per
 read-fraction regime at backlog 64, and ranks the catalog over the same
 read-fraction axis.

@@ -1,12 +1,16 @@
 """ctypes bindings of the fused flit-simulator CUDA kernels
 (``repro_torch/csrc/flit_sim.cu``).
 
-One launch advances every cell of a row-stacked ``[rows, cells]``
-operand with one thread per cell; the ragged edge is masked in the
-kernel, so no padding is needed.  Each launcher takes contiguous f32
-CUDA tensors (validated by :mod:`repro_torch.kernels.flit_sim.ops`),
-allocates the output rows with ``torch.empty``, launches on PyTorch's
-current stream and raises if the launch reports a CUDA error.  The library is built at first use
+A one-chunk or periodic launch advances every cell of a row-stacked
+``[rows, cells]`` operand with one thread per cell; the ragged edge is
+masked in the kernel, so no padding is needed.  A run launch is one
+cooperative grid that takes every cell through a whole adaptive run,
+chunk after chunk, one cell a thread, and stops on the card.  Each
+launcher takes contiguous f32 CUDA tensors (validated by
+:mod:`repro_torch.kernels.flit_sim.ops`), allocates the outputs and
+scratch with ``torch.empty`` (the run's chunk counters with
+``torch.zeros``), launches on PyTorch's current stream and raises if the
+launch reports a CUDA error.  The library is built at first use
 (:mod:`repro_torch._build`).
 """
 from __future__ import annotations
@@ -17,7 +21,7 @@ import torch
 
 from repro_torch import _build
 from repro_torch.kernels.flit_sim.ref import (
-    ASYM_ROWS, PIPE_ROWS, SYM_PERIODIC_ROWS, SYM_ROWS,
+    ASYM_ROWS, DRIFT_SPAN, PIPE_ROWS, SYM_PERIODIC_ROWS, SYM_ROWS,
 )
 
 _P = ctypes.c_void_p
@@ -26,21 +30,32 @@ _P = ctypes.c_void_p
 _LIB = []
 
 
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib`` (a build of ``flit_sim.cu``) with its C signatures
+    declared."""
+    for fn in (lib.flit_symmetric_chunk, lib.flit_pipelining_chunk):
+        fn.argtypes = [_P, _P, _P, _P, _P, ctypes.c_long, ctypes.c_int, _P]
+    lib.flit_asymmetric_periodic.argtypes = [_P, _P, ctypes.c_long,
+                                             ctypes.c_int, _P]
+    lib.flit_symmetric_periodic.argtypes = [_P, _P, ctypes.c_long,
+                                            ctypes.c_int, _P]
+    for fn in (lib.flit_symmetric_run, lib.flit_pipelining_run):
+        fn.argtypes = [_P, _P, _P, _P, _P, ctypes.c_long, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_float, ctypes.c_int, _P]
+    lib.flit_division_check.argtypes = [_P, ctypes.c_int, ctypes.c_int, _P,
+                                        _P]
+    for fn in (lib.flit_symmetric_chunk, lib.flit_asymmetric_periodic,
+               lib.flit_symmetric_periodic, lib.flit_pipelining_chunk,
+               lib.flit_symmetric_run, lib.flit_pipelining_run,
+               lib.flit_division_check):
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def _lib() -> ctypes.CDLL:
     """The built library with its C signatures declared (once)."""
     if not _LIB:
-        lib = _build.load("flit_sim")
-        for fn in (lib.flit_symmetric_chunk, lib.flit_pipelining_chunk):
-            fn.argtypes = [_P, _P, _P, _P, _P, ctypes.c_long, ctypes.c_int,
-                           _P]
-        lib.flit_asymmetric_periodic.argtypes = [_P, _P, ctypes.c_long,
-                                                 ctypes.c_int, _P]
-        lib.flit_symmetric_periodic.argtypes = [_P, _P, ctypes.c_long,
-                                                ctypes.c_int, _P]
-        for fn in (lib.flit_symmetric_chunk, lib.flit_asymmetric_periodic,
-                   lib.flit_symmetric_periodic, lib.flit_pipelining_chunk):
-            fn.restype = ctypes.c_int
-        _LIB.append(lib)
+        _LIB.append(declare(_build.load("flit_sim")))
     return _LIB[0]
 
 
@@ -103,3 +118,55 @@ def pipelining_chunk(params, state, hist, scal, *, chunk: int):
         _stream(params))
     _raise_on(err, "pipelining_chunk")
     return out
+
+
+def _run_outputs(rows: int, params, K: int):
+    cells = params.shape[1]
+    conv_at = torch.empty(cells, dtype=torch.int32, device=params.device)
+    track = torch.zeros(K + 1, dtype=torch.int32, device=params.device)
+    return _out(rows, params), conv_at, track
+
+
+def symmetric_run(params, *, K: int, chunk: int, tol: float, budget: int):
+    """Launch one whole adaptive symmetric run: ``(state [SYM_ROWS, C],
+    conv_at [C] int32, k_exit [1] int32)``."""
+    cells = params.shape[1]
+    out, conv_at, track = _run_outputs(SYM_ROWS, params, K)
+    hist = torch.empty((2 * K + 5 * int(DRIFT_SPAN), cells),
+                       dtype=torch.float32, device=params.device)
+    err = _lib().flit_symmetric_run(
+        params.data_ptr(), out.data_ptr(), hist.data_ptr(),
+        conv_at.data_ptr(), track.data_ptr(), cells, int(chunk), int(K),
+        float(tol), int(budget), _stream(params))
+    _raise_on(err, "symmetric_run")
+    return out, conv_at, track[:1]
+
+
+def pipelining_run(params, *, K: int, chunk: int, tol: float,
+                   n_lines: int):
+    """Launch one whole adaptive pipelining run: ``(state [PIPE_ROWS, C],
+    conv_at [C] int32, k_exit [1] int32)``."""
+    cells = params.shape[1]
+    out, conv_at, track = _run_outputs(PIPE_ROWS, params, K)
+    anchor = torch.empty(cells, dtype=torch.float32, device=params.device)
+    err = _lib().flit_pipelining_run(
+        params.data_ptr(), out.data_ptr(), anchor.data_ptr(),
+        conv_at.data_ptr(), track.data_ptr(), cells, int(chunk), int(K),
+        float(tol), int(n_lines), _stream(params))
+    _raise_on(err, "pipelining_run")
+    return out, conv_at, track[:1]
+
+
+def division_check(d_bits: torch.Tensor, *, varying: bool) -> int:
+    """Pairs (x, d), x over every f32 significand in [1, 2) and d over the
+    f32 bit patterns ``d_bits`` (an int32 CUDA tensor), whose quotient
+    through the run kernels' division by a cell constant (or, ``varying``,
+    by ``tot_q``) differs from the IEEE quotient in any bit (for the
+    varying divisor, plus each exponent in [-50, 50] at which the
+    approximate reciprocal does not scale).  Synchronises."""
+    bad = torch.zeros(1, dtype=torch.int64, device=d_bits.device)
+    err = _lib().flit_division_check(d_bits.data_ptr(), d_bits.numel(),
+                                     int(varying), bad.data_ptr(),
+                                     _stream(d_bits))
+    _raise_on(err, "division_check")
+    return int(bad.item())

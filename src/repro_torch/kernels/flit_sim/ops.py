@@ -20,8 +20,10 @@ from repro_torch.kernels.flit_sim.ref import (
 )
 
 #: CUDA launches per kernel since the last :func:`reset_launches`
-launches: Dict[str, int] = {"symmetric_chunk": 0, "asymmetric_periodic": 0,
-                            "symmetric_periodic": 0, "pipelining_chunk": 0}
+launches: Dict[str, int] = {"symmetric_chunk": 0, "symmetric_run": 0,
+                            "asymmetric_periodic": 0,
+                            "symmetric_periodic": 0, "pipelining_chunk": 0,
+                            "pipelining_run": 0}
 
 
 def reset_launches() -> None:
@@ -68,6 +70,28 @@ def symmetric_chunk(params, state, hist, scal, *, chunk: int):
     return out
 
 
+def _check_run(name: str, params, rows: int, K: int, chunk: int) -> None:
+    _check_rows(name, params, rows, params.shape[1])
+    if K < 1 or chunk < 1:
+        raise ValueError(f"{name}: need K >= 1 and chunk >= 1, got K={K} "
+                         f"chunk={chunk}")
+
+
+def symmetric_run(params, *, K: int, chunk: int, tol: float, budget: int):
+    """A whole adaptive symmetric run of up to ``K`` chunks of ``chunk``
+    cycles, ending after the first chunk that leaves at most ``budget``
+    cells unconverged: ``(state [SYM_ROWS, C], conv_at [C] int32,
+    k_exit [1] int32)``, ``conv_at`` each cell's first converged chunk
+    (-1: none)."""
+    if not _on_cuda("symmetric_run", params):
+        return _ref.symmetric_run_compute(params, K=K, chunk=chunk, tol=tol,
+                                          budget=budget)
+    _check_run("symmetric_run", params, SYM_ROWS, K, chunk)
+    out = _k.symmetric_run(params, K=K, chunk=chunk, tol=tol, budget=budget)
+    launches["symmetric_run"] += 1
+    return out
+
+
 def asymmetric_periodic(params, *, n_accesses: int):
     """Period-exact asymmetric run: ``[ASYM_ROWS, C]`` rows (0 rep,
     1 detected, 2 period)."""
@@ -108,4 +132,19 @@ def pipelining_chunk(params, state, hist, scal, *, chunk: int):
     _check_rows("pipelining_chunk", scal, 1, SCAL_COLS)
     out = _k.pipelining_chunk(params, state, hist, scal, chunk=chunk)
     launches["pipelining_chunk"] += 1
+    return out
+
+
+def pipelining_run(params, *, K: int, chunk: int, tol: float, n_lines: int):
+    """A whole adaptive Fig-13 run of up to ``K`` chunks of ``chunk``
+    lines over a horizon of ``n_lines``, ending when every cell has
+    converged: ``(state [PIPE_ROWS, C], conv_at [C] int32, k_exit [1]
+    int32)``."""
+    if not _on_cuda("pipelining_run", params):
+        return _ref.pipelining_run_compute(params, K=K, chunk=chunk, tol=tol,
+                                           n_lines=n_lines)
+    _check_run("pipelining_run", params, PIPE_ROWS, K, chunk)
+    out = _k.pipelining_run(params, K=K, chunk=chunk, tol=tol,
+                            n_lines=n_lines)
+    launches["pipelining_run"] += 1
     return out

@@ -62,14 +62,20 @@ pipelining ``scal`` [1, 128]::
 
 symmetric periodic: input is the symmetric ``params`` [16, C] stack;
 output [8, C]: 0 rep, 1 detected, 2 period (pad rows zero).
+
+A whole adaptive run (``symmetric_run_compute``,
+``pipelining_run_compute``) takes only ``params`` and returns the state
+rows after its exit chunk, each cell's first converged chunk ``conv_at``
+([C] int32, -1 for none) and the exit chunk ``k_exit`` ([1] int32).
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from repro_torch.core.flitsim import (
-    AsymmetricLaneParams, SymmetricFlitParams, _asymmetric_stepfn,
-    _symmetric_stepfn,
+    _DRIFT_TOL_SLOTS, _MIN_EXIT_CHUNKS, AsymmetricLaneParams,
+    SymmetricFlitParams, _asymmetric_stepfn, _scal_row, _symmetric_stepfn,
 )
 
 #: rows per stacked operand
@@ -102,7 +108,7 @@ SYM_PERIODIC_MAX_BACKLOG = 4.0
 #: device-ready table width shared with flitsim._PIPELINING_PAD_K
 PIPE_MAX_K = 8
 
-#: drift-guard pool-snapshot span (mirrors flitsim._DRIFT_SPAN)
+#: drift-guard pool-snapshot span, in chunks
 DRIFT_SPAN = 3.0
 
 
@@ -164,6 +170,57 @@ def symmetric_chunk_compute(params, state, hist, scal, *, chunk: int):
     pad = torch.zeros_like(D)
     return torch.stack(list(core) + [D, TD, t, rep, conv]
                        + [pad] * (SYM_ROWS - 12))
+
+
+def symmetric_run_compute(params, *, K: int, chunk: int, tol: float,
+                          budget: int):
+    """A whole adaptive symmetric run, the host loop of the reference's
+    ``_run_symmetric_pallas``: one :func:`symmetric_chunk_compute` a chunk,
+    the host gathering each chunk's history rows (a list of chunk-boundary
+    rows) and scalar row and reading the flag row back after it, until at
+    most ``budget`` cells are unconverged or the horizon chunk ``K``.
+    Returns ``(state, conv_at, k_exit)``."""
+    dev = params.device
+    cells = params.shape[1]
+    K0 = max(K // 4, 1)
+    min_k = max(_MIN_EXIT_CHUNKS, K0 + 1)
+    span = int(DRIFT_SPAN)
+    state = torch.zeros((SYM_ROWS, cells), dtype=torch.float32, device=dev)
+    zrow = torch.zeros((1, cells), dtype=torch.float32, device=dev)
+    z5 = torch.zeros((5, cells), dtype=torch.float32, device=dev)
+    z6 = torch.zeros((6, cells), dtype=torch.float32, device=dev)
+    Dh, TDh, Ph = [zrow], [zrow], [z5]
+
+    def hist_for(k: int):
+        m = max(k - 4, (k + 1) // 2)
+        mid = (m + k + 1) // 2
+        return m, mid, torch.cat([
+            Ph[max(k - span, 0)],
+            Dh[m] if m < k else zrow, TDh[m] if m < k else zrow,
+            Dh[mid] if mid < k else zrow, TDh[mid] if mid < k else zrow,
+            Dh[K0] if k > K0 else zrow, z6])
+
+    def scal_for(k: int, m: int, mid: int):
+        return _scal_row([k, m, mid, K0, K, chunk, tol,
+                          1.0 if (k >= min_k and k > span) else 0.0,
+                          1.0 if k >= K else 0.0, _DRIFT_TOL_SLOTS], dev)
+
+    conv_at = np.full(cells, -1, np.int32)
+    k = 0
+    while k < K:
+        k += 1
+        m, mid, hist = hist_for(k)
+        state = symmetric_chunk_compute(params, state, hist,
+                                        scal_for(k, m, mid), chunk=chunk)
+        Dh.append(state[7:8])
+        TDh.append(state[8:9])
+        Ph.append(state[0:5])
+        conv_np = (state[11] > 0.5).cpu().numpy()
+        conv_at[(conv_at < 0) & conv_np] = k
+        if int((~conv_np).sum()) <= budget:
+            break
+    return (state, torch.as_tensor(conv_at, device=dev),
+            torch.tensor([k], dtype=torch.int32, device=dev))
 
 
 def asymmetric_periodic_compute(params, *, n_accesses: int):
@@ -323,3 +380,38 @@ def pipelining_chunk_compute(params, state, hist, scal, *, chunk: int):
     pad = torch.zeros_like(link_free)
     return torch.stack(list(dev_ready) + [link_free, idx, rep, conv]
                        + [pad] * (PIPE_ROWS - PIPE_MAX_K - 4))
+
+
+def pipelining_run_compute(params, *, K: int, chunk: int, tol: float,
+                           n_lines: int):
+    """A whole adaptive Fig-13 pipelining run, the host loop of the
+    reference's ``_run_pipelining_pallas``: one
+    :func:`pipelining_chunk_compute` a chunk, the T1 anchor taken after
+    chunk 1 and the flag row read back after each chunk, until every cell
+    has converged or the horizon chunk ``K``.  Returns ``(state, conv_at,
+    k_exit)``."""
+    dev = params.device
+    cells = params.shape[1]
+    min_k = min(_MIN_EXIT_CHUNKS, K)
+    state = torch.zeros((PIPE_ROWS, cells), dtype=torch.float32, device=dev)
+    hist = torch.zeros((ASYM_ROWS, cells), dtype=torch.float32, device=dev)
+
+    def scal_for(k: int):
+        return _scal_row([k, K, chunk, tol, 1.0 if k >= min_k else 0.0,
+                          1.0 if k >= K else 0.0, n_lines], dev)
+
+    conv_at = np.full(cells, -1, np.int32)
+    k = 0
+    while k < K:
+        k += 1
+        state = pipelining_chunk_compute(params, state, hist, scal_for(k),
+                                         chunk=chunk)
+        if k == 1:      # T1 anchor for the linear-growth extrapolation
+            hist = torch.cat([state[8:9], torch.zeros(
+                (ASYM_ROWS - 1, cells), dtype=torch.float32, device=dev)])
+        conv_np = (state[11] > 0.5).cpu().numpy()
+        conv_at[(conv_at < 0) & conv_np] = k
+        if int((~conv_np).sum()) == 0:
+            break
+    return (state, torch.as_tensor(conv_at, device=dev),
+            torch.tensor([k], dtype=torch.int32, device=dev))

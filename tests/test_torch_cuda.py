@@ -1,5 +1,7 @@
 """The port's CUDA kernels on the card: each flit kernel bitwise equal to
-its plain version, the flash-attention kernels within tolerance of their
+its plain version (the run kernels, whole adaptive runs in one launch, to
+the plain run's state rows, first converged chunks and exit chunk), the
+flash-attention kernels within tolerance of their
 plain version (the f32 CUDA-core kernel: atol 3e-5, rtol 1e-4; the bf16
 tensor-core kernel: one output ulp, atol 4e-3, rtol 2^-7, at head dims 16
 to 256, ragged Sq and Skv, Sq = 1, windows, offsets, MQA and GQA, one and
@@ -99,16 +101,220 @@ def test_wrappers_reject_bad_operands(dev):
         ops.symmetric_periodic(rows[:8].contiguous(), n_flits=2048)
     with pytest.raises(ValueError, match="several devices"):
         ops.symmetric_chunk(rows, rows.cpu(), rows, rows[:1], chunk=8)
+    with pytest.raises(ValueError, match="shape"):
+        ops.symmetric_run(rows[:8].contiguous(), K=4, chunk=8, tol=1e-3,
+                          budget=0)
+    with pytest.raises(ValueError, match="K >= 1"):
+        ops.pipelining_run(rows, K=0, chunk=8, tol=1e-3, n_lines=8)
+
+
+def _perturbed_rows(dev, cells):
+    """Symmetric rows of the three protocols under eight perturbations of
+    the step's divisors and limits by factors that are not round numbers,
+    over 4 backlogs and enough read fractions for ``cells`` cells."""
+    rng = np.random.default_rng(18)
+    perts = [{f: float(v) for f, v in zip(
+        ("data_slots_per_line", "reqs_per_g", "resps_per_g",
+         "credit_lines"), rng.uniform(0.7, 1.4, 4))} for _ in range(8)]
+    ps = flitsim.SymmetricFlitParams.stack(
+        [p.perturbed(q) for q in perts
+         for p in flitsim.SYMMETRIC_PARAMS.values()], dev)
+    n = -(-cells // (4 * 24))
+    x = 100.0 * torch.linspace(0, 1, n, device=dev)
+    rows = flitsim._sym_param_rows(ps, x, 100.0 - x,
+                                   torch.tensor([2.0, 8.0, 24.0, 64.0],
+                                                device=dev))
+    return rows[:, :cells].contiguous()
+
+
+def _out_of_range_sym(rows):
+    """``rows`` with cells planted whose divisions leave the range where
+    the run kernels' reciprocal division is exact ([2^-50, 2^50], no -0),
+    so that their chunks run again with the IEEE division: the divisor
+    data_slots_per_line below and above it, credit_r's dividend below and
+    above it, credit_w's below it, reqs_per_g and resps_per_g above it, a
+    quotient below the normal range (credit_lines x 2^-105 over
+    data_slots_per_line x 2^28), and a -0 dividend (sent_req x rq_elig
+    with a negative header capacity at read fraction 0, column 21)."""
+    rows = rows.clone()
+    rows[6, 1] *= 2.0 ** -60
+    rows[6, 2] *= 2.0 ** 60
+    rows[9, 3] *= 2.0 ** -70
+    rows[9, 4] *= 2.0 ** 60
+    rows[10, 5] *= 2.0 ** -70
+    rows[4, 6] = 2.0 ** 60
+    rows[5, 7] = 2.0 ** 60
+    rows[9, 8] *= 2.0 ** -105
+    rows[6, 8] *= 2.0 ** 28
+    rows[4, 21] = -1.0
+    return rows
+
+
+def _out_of_range_pipe(rows):
+    """``rows`` with the modulo's divisor k planted above and below the
+    range of :func:`_out_of_range_sym`."""
+    rows = rows.clone()
+    rows[0, 0] = 2.0 ** 60
+    rows[0, 1] = 2.0 ** -60
+    return rows
+
+
+def _same_bits(a, b):
+    """Equal bit for bit, -0 and +0 told apart."""
+    return a.shape == b.shape and torch.equal(
+        a.view(torch.int32), b.view(torch.int32))
+
+
+def _sym_run_case(dev, case):
+    """(rows, K, chunk, tol) of a symmetric run case."""
+    if case == "out of range":
+        return (_out_of_range_sym(_sym_rows(dev, [2.0, 8.0, 64.0])), 16, 128,
+                1e-3)
+    if case == "1 cell":
+        return _sym_rows(dev, [8.0])[:, 5:6].contiguous(), 16, 128, 1e-3
+    if case == "189 cells":
+        return _sym_rows(dev, [2.0, 8.0, 64.0]), 16, 128, 1e-3
+    if case == "1025 cells":
+        return (_sym_rows(dev, [2.0, 8.0, 32.0, 64.0, 128.0], n=69)[:, :1025]
+                .contiguous(), 16, 128, 1e-3)
+    if case == "perturbed 2^16":
+        return _perturbed_rows(dev, 1 << 16), 16, 128, 1e-3
+    if case == "stragglers":
+        return _sym_rows(dev, [16.0, 32.0, 64.0], n=43), 16, 128, 1e-3
+    assert case == "chunk 8"
+    return _sym_rows(dev, [2.0, 8.0, 64.0], n=9), 8, 8, 1e-3
+
+
+def _assert_runs_equal(got, want, *, bits=False):
+    for name, a, b in zip(("state rows", "conv_at", "exit chunk"), got,
+                          want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+        if bits:
+            assert _same_bits(a, b), name
+
+
+@pytest.mark.parametrize("case", ["1 cell", "189 cells", "1025 cells",
+                                  "perturbed 2^16", "stragglers",
+                                  "chunk 8", "out of range"])
+def test_symmetric_run_equal_plain(dev, case):
+    rows, K, chunk, tol = _sym_run_case(dev, case)
+    budget = flitsim._escalation_budget(rows.shape[1], chunk, K * chunk)
+    ops.reset_launches()
+    got = ops.symmetric_run(rows, K=K, chunk=chunk, tol=tol, budget=budget)
+    assert ops.launches["symmetric_run"] == 1
+    want = ref.symmetric_run_compute(rows, K=K, chunk=chunk, tol=tol,
+                                     budget=budget)
+    _assert_runs_equal(got, want, bits=case == "out of range")
+    if case == "stragglers":
+        assert budget > 0 and int((got[0][11] < 0.5).sum()) > 0
+
+
+@pytest.mark.parametrize("case", ["1 cell", "48 cells", "1025 cells",
+                                  "chunk 8", "out of range"])
+def test_pipelining_run_equal_plain(dev, case):
+    ks, us, ds, K, chunk = {
+        "1 cell": ((3,), (8.0,), (32.0,), 8, 64),
+        "48 cells": (range(1, 9), (8.0, 16.0), (16.0, 32.0, 64.0), 8, 64),
+        "out of range": (range(1, 9), (8.0, 16.0), (16.0, 32.0, 64.0), 8,
+                         64),
+        "1025 cells": (range(1, 9), (8.0, 11.0, 16.0, 23.0),
+                       np.linspace(8.0, 96.0, 33), 8, 64),
+        "chunk 8": (range(1, 9), (8.0, 13.0), (16.0, 37.0, 64.0), 8, 8),
+    }[case]
+    rows = flitsim._pipe_param_rows(
+        torch.as_tensor(list(ks), device=dev),
+        torch.as_tensor(us, dtype=torch.float32, device=dev),
+        torch.as_tensor(ds, dtype=torch.float32, device=dev))
+    if case == "1025 cells":
+        rows = rows[:, :1025].contiguous()
+    if case == "out of range":
+        rows = _out_of_range_pipe(rows)
+    ops.reset_launches()
+    got = ops.pipelining_run(rows, K=K, chunk=chunk, tol=1e-3,
+                             n_lines=K * chunk)
+    assert ops.launches["pipelining_run"] == 1
+    _assert_runs_equal(got, ref.pipelining_run_compute(
+        rows, K=K, chunk=chunk, tol=1e-3, n_lines=K * chunk),
+        bits=case == "out of range")
+
+
+def test_chunk_kernels_equal_plain_out_of_range(dev):
+    """The one-chunk kernels on the cells of :func:`_out_of_range_sym` and
+    :func:`_out_of_range_pipe`, and on pipelining states whose line index
+    (the modulo's dividend) is -0, 2^-60 or 2^55: chunk after chunk, bit
+    for bit."""
+    rows = _out_of_range_sym(_sym_rows(dev, [2.0, 8.0, 64.0]))
+    cells = rows.shape[1]
+    state = torch.zeros((ref.SYM_ROWS, cells), device=dev)
+    rng = np.random.default_rng(5)
+    for k in range(1, 5):
+        hist = torch.as_tensor(rng.uniform(0, 50, (ref.SYM_ROWS, cells)),
+                               dtype=torch.float32, device=dev)
+        scal = flitsim._scal_row([k, max(k - 4, (k + 1) // 2), k, 4, 16,
+                                  128, 1e-3, 1.0, 0.0, 2.0], dev)
+        got = ops.symmetric_chunk(rows, state, hist, scal, chunk=128)
+        want = ref.symmetric_chunk_compute(rows, state, hist, scal,
+                                           chunk=128)
+        assert _same_bits(got, want), k
+        state = want
+    params = _out_of_range_pipe(flitsim._pipe_param_rows(
+        torch.arange(1, 9, device=dev), torch.tensor([8.0, 13.0], device=dev),
+        torch.tensor([16.0, 37.0, 64.0], device=dev)))
+    cells = params.shape[1]
+    state = torch.zeros((ref.PIPE_ROWS, cells), device=dev)
+    state[9, 2:5] = torch.tensor([-0.0, 2.0 ** -60, 2.0 ** 55], device=dev)
+    hist = torch.zeros((ref.ASYM_ROWS, cells), device=dev)
+    for k in range(1, 5):
+        scal = flitsim._scal_row([k, 8, 64, 1e-3, 1.0 if k >= 4 else 0.0,
+                                  0.0, 512], dev)
+        got = ops.pipelining_chunk(params, state, hist, scal, chunk=64)
+        want = ref.pipelining_chunk_compute(params, state, hist, scal,
+                                            chunk=64)
+        assert _same_bits(got, want), k
+        state = want
+        if k == 1:
+            hist = torch.cat([state[8:9], torch.zeros((7, cells),
+                                                      device=dev)])
+
+
+def test_cell_division_equals_ieee(dev):
+    """The run kernels' divisions (by a constant of the cell, and by the
+    varying tot_q) equal the IEEE quotient for every significand of the
+    dividend, at the divisors of the catalog's protocols, perturbed ones
+    and 4096 random ones (``chip_smoke.py`` runs all 2^23)."""
+    from repro_torch.kernels.flit_sim import kernel
+    ps = flitsim.SymmetricFlitParams.stack(
+        list(flitsim.SYMMETRIC_PARAMS.values()), "cpu")
+    fixed = torch.cat([ps.data_slots_per_line, ps.reqs_per_g.clamp_min(1e-9),
+                       ps.resps_per_g.clamp_min(1e-9),
+                       torch.arange(1, 9, dtype=torch.float32),
+                       _perturbed_rows("cpu", 96)[[4, 5, 6]].reshape(-1)
+                       .clamp_min(1e-9)])
+    rng = np.random.default_rng(7)
+    rand = torch.as_tensor(rng.uniform(1e-3, 1e3, 4096), dtype=torch.float32)
+    d = torch.cat([fixed, rand]).view(torch.int32).to(dev)
+    for varying in (False, True):
+        assert kernel.division_check(d, varying=varying) == 0, varying
 
 
 def test_bridge_on_card_meets_golden(dev):
     sys.path.insert(0, str(ROOT / "tools"))
     from design_space_summary import summarize
     from repro_torch import explorer
+    runs = []
+    fused = flitsim._run_symmetric_fused
+
+    def counted(*a, **kw):
+        runs.append(1)
+        return fused(*a, **kw)
     ops.reset_launches()
-    ds = explorer.bridge_mode(device=dev, verbose=False)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(flitsim, "_run_symmetric_fused", counted)
+        ds = explorer.bridge_mode(device=dev, verbose=False)
     assert ops.launches["asymmetric_periodic"] > 0
-    assert ops.launches["symmetric_chunk"] > 0
+    # one launch per adaptive symmetric run, no one-chunk launch
+    assert len(runs) == 2 and ops.launches["symmetric_run"] == len(runs)
+    assert ops.launches["symmetric_chunk"] == 0
     golden = json.loads(
         (ROOT / "experiments/golden/design_space_summary.json").read_text())
     got = summarize(ds)
@@ -161,7 +367,8 @@ def test_fig13_on_card_matches_cpu(dev):
             axis("device_line_ui", (16, 32, 64))]
     ops.reset_launches()
     card = DesignSpace(axes, sim=ADAPTIVE_SIM, device=dev).evaluate()
-    assert 4 <= ops.launches["pipelining_chunk"] <= 8
+    assert ops.launches["pipelining_run"] == 1      # one adaptive run
+    assert ops.launches["pipelining_chunk"] == 0
     cpu = DesignSpace(axes, sim=ADAPTIVE_SIM, device="cpu").evaluate()
     np.testing.assert_allclose(card["utilization"].values,
                                cpu["utilization"].values, atol=1e-6, rtol=0)

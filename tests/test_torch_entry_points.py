@@ -103,10 +103,11 @@ def test_sweep_matches_reference_design_space(sweep, jsim):
 
 
 def _sweep_with_chunk(fn, monkeypatch):
-    """The port's CPU sweep with ``symmetric_chunk`` replaced by ``fn``."""
-    from repro_torch.kernels.flit_sim import ops
+    """The port's CPU sweep with the plain symmetric run's chunk body
+    (``ref.symmetric_chunk_compute``) replaced by ``fn``."""
+    from repro_torch.kernels.flit_sim import ref
     with monkeypatch.context() as m:
-        m.setattr(ops, "symmetric_chunk", fn)
+        m.setattr(ref, "symmetric_chunk_compute", fn)
         # stragglers are escalated on the f32 fixed engine
         esc = tf._escalate_stragglers
 
@@ -146,8 +147,9 @@ def test_sweep_exception_is_the_reference_contraction(sweep, monkeypatch):
             p, s, h, c, chunk=chunk), monkeypatch)["efficiency"]
     np.testing.assert_array_equal(fused[beyond], eff[beyond])
 
+    plain = ref.symmetric_chunk_compute
     f64 = _sweep_with_chunk(
-        lambda p, s, h, c, *, chunk: ref.symmetric_chunk_compute(
+        lambda p, s, h, c, *, chunk: plain(
             p.double(), s.double(), h.double(), c.double(), chunk=chunk),
         monkeypatch)
     assert f64["efficiency"].dtype == np.float64

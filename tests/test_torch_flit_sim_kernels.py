@@ -172,3 +172,138 @@ def test_wrappers_validate_operands():
     with pytest.raises(ValueError, match="several devices"):
         ops.symmetric_chunk(rows, rows.to("meta"), rows, rows[:1],
                             chunk=8)
+
+
+# -- whole adaptive runs: the plain run against the per-chunk host loop -----
+
+def _loop_symmetric(params, *, K, chunk, tol, budget):
+    """The port's adaptive symmetric host loop as it stood before the run
+    kernel (one ``ops.symmetric_chunk`` a chunk, the host gathering the
+    history and scalar rows and reading the flags back): the oracle of
+    ``ref.symmetric_run_compute``."""
+    from repro_torch.core import flitsim as tf
+    cells = params.shape[1]
+    K0 = max(K // 4, 1)
+    min_k = max(4, K0 + 1)
+    state = torch.zeros((tref.SYM_ROWS, cells))
+    zrow, z5, z6 = (torch.zeros((r, cells)) for r in (1, 5, 6))
+    Dh, TDh, Ph = [zrow], [zrow], [z5]
+    conv_at = np.full(cells, -1, np.int32)
+    k = 0
+    while k < K:
+        k += 1
+        m = max(k - 4, (k + 1) // 2)
+        mid = (m + k + 1) // 2
+        hist = torch.cat([
+            Ph[max(k - 3, 0)], Dh[m] if m < k else zrow,
+            TDh[m] if m < k else zrow, Dh[mid] if mid < k else zrow,
+            TDh[mid] if mid < k else zrow, Dh[K0] if k > K0 else zrow, z6])
+        scal = tf._scal_row([k, m, mid, K0, K, chunk, tol,
+                             1.0 if (k >= min_k and k > 3) else 0.0,
+                             1.0 if k >= K else 0.0, 2.0], "cpu")
+        state = ops.symmetric_chunk(params, state, hist, scal, chunk=chunk)
+        Dh.append(state[7:8])
+        TDh.append(state[8:9])
+        Ph.append(state[0:5])
+        conv_np = (state[11] > 0.5).numpy()
+        conv_at[(conv_at < 0) & conv_np] = k
+        if int((~conv_np).sum()) <= budget:
+            break
+    return state, conv_at, k
+
+
+def _loop_pipelining(params, *, K, chunk, tol, n_lines):
+    """The port's adaptive pipelining host loop as it stood before the run
+    kernel: the oracle of ``ref.pipelining_run_compute``."""
+    from repro_torch.core import flitsim as tf
+    cells = params.shape[1]
+    state = torch.zeros((tref.PIPE_ROWS, cells))
+    hist = torch.zeros((tref.ASYM_ROWS, cells))
+    conv_at = np.full(cells, -1, np.int32)
+    k = 0
+    while k < K:
+        k += 1
+        scal = tf._scal_row([k, K, chunk, tol,
+                             1.0 if k >= min(4, K) else 0.0,
+                             1.0 if k >= K else 0.0, n_lines], "cpu")
+        state = ops.pipelining_chunk(params, state, hist, scal, chunk=chunk)
+        if k == 1:
+            hist = torch.cat([state[8:9], torch.zeros((7, cells))])
+        conv_np = (state[11] > 0.5).numpy()
+        conv_at[(conv_at < 0) & conv_np] = k
+        if int((~conv_np).sum()) == 0:
+            break
+    return state, conv_at, k
+
+
+def _assert_run_equal(got, want):
+    state, conv_at, k_exit = got
+    assert conv_at.dtype == torch.int32 and k_exit.dtype == torch.int32
+    assert torch.equal(state, want[0])
+    np.testing.assert_array_equal(conv_at.numpy(), want[1])
+    assert k_exit.tolist() == [want[2]]
+
+
+# name -> (fractions, backlogs, keys, horizon, tol): the bridge's two
+# grids, a saturated one, one of 387 cells that leaves stragglers, and
+# horizons whose chunk schedule gives K = 8 (chunk 125) and chunk 8
+SYM_RUNS = {
+    "bridge joint": (np.linspace(0, 1, 21), [2.0, 8.0, 64.0], None, 2048,
+                     1e-3),
+    "bridge sim_phy": (np.linspace(0, 1, 21), [2.0, 64.0], None, 2048,
+                       1e-3),
+    "saturated": (np.linspace(0, 1, 7), [64.0, 128.0, 256.0], None, 2048,
+                  1e-3),
+    "stragglers": (np.linspace(0, 1, 43), [16.0, 32.0, 64.0], None, 2048,
+                   1e-3),
+    "K 8": (np.linspace(0, 1, 9), [2.0, 64.0], ("chi", "cxl_opt"), 1000,
+            1e-3),
+    "chunk 8": (np.linspace(0, 1, 5), [8.0], ("cxl_unopt",), 64, 1e-3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SYM_RUNS))
+def test_symmetric_run_plain_equals_host_loop(case):
+    from repro_torch.core import flitsim as tf
+    fracs, backlogs, keys, horizon, tol = SYM_RUNS[case]
+    rows = convert.rows(_sym_rows(fracs, backlogs, keys or
+                                  ("cxl_unopt", "cxl_opt", "chi")), "cpu")
+    cells = rows.shape[1]
+    chunk = tf._divisor_chunk(horizon, 128)
+    K = horizon // chunk
+    budget = tf._escalation_budget(cells, chunk, horizon)
+    assert (K, chunk) == {"K 8": (8, 125), "chunk 8": (8, 8)}.get(
+        case, (16, 128))
+    assert (budget > 0) == (cells >= 256)
+    want = _loop_symmetric(rows, K=K, chunk=chunk, tol=tol, budget=budget)
+    ops.reset_launches()
+    got = ops.symmetric_run(rows, K=K, chunk=chunk, tol=tol, budget=budget)
+    assert ops.launches["symmetric_run"] == 0        # CPU: the plain run
+    _assert_run_equal(got, want)
+    if case == "stragglers":       # the exit leaves unconverged cells
+        assert 0 < int((want[0][11] < 0.5).sum()) <= budget
+    if case == "saturated":
+        assert want[2] < K
+
+
+@pytest.mark.parametrize("n_lines,chunk", [(512, 64), (128, 8)])
+def test_pipelining_run_plain_equals_host_loop(n_lines, chunk):
+    from repro_torch.core import flitsim as tf
+    rows = tf._pipe_param_rows(torch.arange(1, 9),
+                               torch.tensor([8.0, 16.0]),
+                               torch.tensor([16.0, 32.0, 64.0]))
+    K = n_lines // chunk
+    want = _loop_pipelining(rows, K=K, chunk=chunk, tol=1e-3,
+                            n_lines=n_lines)
+    got = ops.pipelining_run(rows, K=K, chunk=chunk, tol=1e-3,
+                             n_lines=n_lines)
+    _assert_run_equal(got, want)
+
+
+def test_run_wrappers_validate_operands():
+    rows = torch.zeros((tref.SYM_ROWS, 4))
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.symmetric_run(rows.to("meta"), K=4, chunk=8, tol=1e-3, budget=0)
+    with pytest.raises(ValueError, match="no kernel"):
+        ops.pipelining_run(rows.to("meta"), K=4, chunk=8, tol=1e-3,
+                           n_lines=32)

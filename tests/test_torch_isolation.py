@@ -182,6 +182,13 @@ def test_cuda_source_constants_match_ref():
     eps = src.split("constexpr float PERIOD_EPS = ")[1].split("f;")[0]
     assert np.float32(float(eps)) == np.float32(ref.PERIOD_EPS)
     assert np.isclose(ref.DRIFT_SPAN, 3.0) and "(1.0f / 3.0f)" in src
+    # the adaptive schedule the run kernels repeat
+    from repro_torch.core import flitsim
+    assert f"constexpr int DRIFT_SPAN = {int(ref.DRIFT_SPAN)};" in src
+    assert f"constexpr int MIN_EXIT_CHUNKS = {flitsim._MIN_EXIT_CHUNKS};" \
+        in src
+    tol = src.split("constexpr float DRIFT_TOL_SLOTS = ")[1].split("f;")[0]
+    assert float(tol) == flitsim._DRIFT_TOL_SLOTS
 
 
 def test_flit_pack_source_constants_match_ref():

@@ -132,7 +132,7 @@ def test_adaptive_matches_reference(jsim):
     np.testing.assert_allclose(got, _jax_grid(KS, jsim), atol=ATOL, rtol=0)
     want = jf.last_run_info()["flitsim.pipelining"]
     assert info["engine"] == "fused" and info["chunk"] == 64
-    assert 4 <= info["launches"] <= 8
+    assert info["launches"] == 1        # one run launch, no escalation
     assert info["cells"] == len(KS) * len(US) * len(DS)
     for key in ("cycles_run", "converged_cycles", "horizon", "chunk"):
         assert info[key] == want[key], key
