@@ -2,6 +2,7 @@
 """On-card smoke run of the PyTorch/CUDA port (``src/repro_torch``).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --periodic-ab OLD/flit_sim.cu [OTHER.cu ...]
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``).  Phases, each fatal
 on failure:
@@ -14,10 +15,12 @@ on failure:
    2^20 cells (the one-chunk kernels chunk by chunk over a run, timed one
    call and on the card; the run kernels ``symmetric_run`` and
    ``pipelining_run``, whole adaptive runs in one launch, against the
-   plain run's state rows, first converged chunks and exit chunk, timed
-   one call, back to back and on the card beside their bounds; ptxas's
-   registers, stack frame and spills of every flit kernel logged, a spill
-   fatal; the run kernels' two reciprocal divisions against the IEEE
+   plain run's state rows, first converged chunks and exit chunk, and the
+   periodic detectors ``asymmetric_periodic`` and ``symmetric_periodic``,
+   timed one call, back to back and on the card beside their bounds;
+   ptxas's registers, stack frame and spills of every flit kernel logged,
+   a spill fatal, and a stack frame of a periodic detector too; the run
+   kernels' two reciprocal divisions against the IEEE
    quotient over all 2^46 pairs of f32 significands each, about 2 min),
    ``pack_flits`` at 64 and 2^20 lines with the unpack round trip;
 4. main path, each path driven with the launch counts set to 0 just
@@ -94,8 +97,15 @@ on failure:
    fails the run);
 
 5. report: one ``{"kernels": [...]}`` line, then the result line.
+
+``--periodic-ab`` runs only phases 1-2 and the periodic detectors of
+phase 3, for other ``flit_sim.cu`` files (a parent commit's, unpacked with
+``git archive``) and this tree's in turns in one process, and prints one
+``{"periodic_ab": [...]}`` line last.
 """
+import argparse
 import contextlib
+import ctypes
 import importlib.util
 import json
 import re
@@ -485,12 +495,59 @@ def check_pack(n: int, reps: int):
 
 
 def check_periodic(name, fn, plain_fn, params, reps):
-    got = fn(params)
+    """A periodic detector, kernel vs plain on the same operands, bitwise.
+    Returns a record (max_abs_err, one call, back to back and on-card ms,
+    the plain version's ms) and the plain output."""
     want = plain_fn(params)
-    err = hold(name, got, want)
-    ms = time_ms(lambda: fn(params), reps)
-    plain = time_ms(lambda: plain_fn(params), max(reps // 5, 2))
-    return err, ms, plain, want
+    err = hold(name, fn(params), want)
+    call = lambda: fn(params)
+    return dict(max_abs_err=err, ms=time_ms(call, reps),
+                back_to_back_ms=stream_ms(call),
+                card_ms=kernel_ms(call, rf"({name}_kernel)")[f"{name}_kernel"],
+                plain_ms=time_ms(lambda: plain_fn(params),
+                                 max(reps // 5, 2))), want
+
+
+def periodic_records(ops_in, label, reps):
+    """Both periodic detectors at one shape of :func:`kernel_shapes`:
+    their :func:`check_periodic` records with cells and bounds.  The
+    bounds count the plain version's observation (PERIOD_OBS steps) and
+    lag search, the least work for the function; the kernels replay up to
+    twice as many steps instead of keeping the window."""
+    records = {}
+    p = ops_in["asymmetric_periodic"]
+    cells = p.shape[1]
+    log(f"checking asymmetric_periodic @ {label} ({cells} cells)")
+    r, out = check_periodic(
+        "asymmetric_periodic",
+        lambda q: ops.asymmetric_periodic(q, n_accesses=4096),
+        lambda q: ref.asymmetric_periodic_compute(q, n_accesses=4096), p,
+        reps)
+    # data-dependent detection work: the lag search stops at the detected
+    # period (all PERIOD_MAX lags for undetected cells)
+    lags = torch.where(out[1] > 0.5, out[2],
+                       float(ref.PERIOD_MAX)).sum().item()
+    b, by = bound_ms(4.0 * 2 * ref.ASYM_ROWS * cells,
+                     cells * (ref.PERIOD_OBS * ASYM_STEP_OPS + 24)
+                     + 3 * lags)
+    records["asymmetric_periodic"] = dict(cells=cells, bound_ms=b,
+                                          bound_by=by, **r)
+    p = ops_in["symmetric_periodic"]
+    cells = p.shape[1]
+    log(f"checking symmetric_periodic @ {label} ({cells} cells)")
+    r, out = check_periodic(
+        "symmetric_periodic",
+        lambda q: ops.symmetric_periodic(q, n_flits=2048),
+        lambda q: ref.symmetric_periodic_compute(q, n_flits=2048), p, reps)
+    lags = torch.where(out[1] > 0.5, out[2],
+                       float(ref.PERIOD_MAX)).sum().item()
+    b, by = bound_ms(4.0 * (ref.SYM_ROWS + ref.SYM_PERIODIC_ROWS) * cells,
+                     cells * (ref.SYM_PERIOD_OBS * SYM_STEP_OPS
+                              + 2 * ref.PERIOD_WINDOW + 40)
+                     + 7 * lags)
+    records["symmetric_periodic"] = dict(cells=cells, bound_ms=b,
+                                         bound_by=by, **r)
+    return records
 
 
 def bound_ms(bytes_moved: float, ops_done: float):
@@ -531,11 +588,6 @@ def kernel_shapes():
 def phase_kernels():
     """Every kernel against its plain version at its main-path shapes and
     at ~2^20 cells; returns per-kernel records per shape."""
-    asym = lambda p: ops.asymmetric_periodic(p, n_accesses=4096)
-    asym_plain = lambda p: ref.asymmetric_periodic_compute(p,
-                                                           n_accesses=4096)
-    symp = lambda p: ops.symmetric_periodic(p, n_flits=2048)
-    symp_plain = lambda p: ref.symmetric_periodic_compute(p, n_flits=2048)
     shapes = kernel_shapes()
     records = {}
     for label, ops_in in shapes.items():
@@ -564,37 +616,7 @@ def phase_kernels():
             f"latencies, not measured; the card took "
             f"{r['card_ms']:.4f} ms)")
 
-        p = ops_in["asymmetric_periodic"]
-        cells = p.shape[1]
-        log(f"checking asymmetric_periodic @ {label} ({cells} cells)")
-        err, ms, plain, out = check_periodic("asymmetric_periodic", asym,
-                                             asym_plain, p, reps)
-        # data-dependent detection work: the lag search stops at the
-        # detected period (all PERIOD_MAX lags for undetected cells)
-        lags = torch.where(out[1] > 0.5, out[2],
-                           float(ref.PERIOD_MAX)).sum().item()
-        b, by = bound_ms(4.0 * 2 * ref.ASYM_ROWS * cells,
-                         cells * (ref.PERIOD_OBS * ASYM_STEP_OPS + 24)
-                         + 3 * lags)
-        records[label]["asymmetric_periodic"] = dict(
-            cells=cells, max_abs_err=err, ms=ms, plain_ms=plain,
-            bound_ms=b, bound_by=by)
-
-        p = ops_in["symmetric_periodic"]
-        cells = p.shape[1]
-        log(f"checking symmetric_periodic @ {label} ({cells} cells)")
-        err, ms, plain, out = check_periodic("symmetric_periodic", symp,
-                                             symp_plain, p, reps)
-        lags = torch.where(out[1] > 0.5, out[2],
-                           float(ref.PERIOD_MAX)).sum().item()
-        b, by = bound_ms(4.0 * (ref.SYM_ROWS + ref.SYM_PERIODIC_ROWS)
-                         * cells,
-                         cells * (ref.SYM_PERIOD_OBS * SYM_STEP_OPS
-                                  + 2 * ref.PERIOD_WINDOW + 40)
-                         + 7 * lags)
-        records[label]["symmetric_periodic"] = dict(
-            cells=cells, max_abs_err=err, ms=ms, plain_ms=plain,
-            bound_ms=b, bound_by=by)
+        records[label].update(periodic_records(ops_in, label, reps))
 
         p = ops_in["pipelining_chunk"]
         cells = p.shape[1]
@@ -633,11 +655,11 @@ def phase_kernels():
             cells=n, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
             bound_by=by)
         for name, r in records[label].items():
-            run = (f", back to back {r['back_to_back_ms']:.4f} ms, on the "
-                   f"card {r['card_ms']:.4f} ms, exit chunk {r['k_exit']}"
-                   if "k_exit" in r
-                   else f", on the card {r['card_ms']:.4f} ms"
-                   if "card_ms" in r else "")
+            run = "".join(f", {what} {r[key]:.4f} ms" for key, what in (
+                ("back_to_back_ms", "back to back"),
+                ("card_ms", "on the card")) if key in r)
+            if "k_exit" in r:
+                run += f", exit chunk {r['k_exit']}"
             log(f"kernel {name} @ {label} ({r['cells']} cells/lines): bitwise "
                   f"equal to plain; kernel {r['ms']:.4f} ms{run}, plain "
                   f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
@@ -651,11 +673,12 @@ FLIT_KERNELS = ("symmetric_chunk_kernel", "symmetric_run_kernel",
                 "asymmetric_periodic_kernel", "symmetric_periodic_kernel")
 
 
-def flit_ptxas() -> None:
+def flit_ptxas(text=None, strict: bool = True) -> None:
     """Log ptxas's registers, stack frame (local memory) and spills of
-    every flit-simulator kernel; a spill in a chunk or run kernel fails
-    the run."""
-    text = _build.BUILD_LOG.get("flit_sim")
+    every flit-simulator kernel in a build log (default: this build's); a
+    spill in a chunk or run kernel, or a stack frame or spill in a
+    periodic detector, fails the run unless not ``strict``."""
+    text = _build.BUILD_LOG.get("flit_sim") if text is None else text
     if text is None:
         log("ptxas [flit_sim]: library was already built, no report")
         return
@@ -663,12 +686,19 @@ def flit_ptxas() -> None:
     for kernel in FLIT_KERNELS:
         report.update(ptxas_instances(text, kernel))
     log(f"ptxas, flit kernels: {json.dumps(report)}")
+    if not strict:
+        return
     for name, r in report.items():
-        if ("_chunk_kernel" in name or "_run_kernel" in name) and \
-                (r.get("spill_stores") or r.get("spill_loads")):
+        spills = r.get("spill_stores") or r.get("spill_loads")
+        if ("_chunk_kernel" in name or "_run_kernel" in name) and spills:
             raise AssertionError(f"ptxas spills in {name}: {r}")
+        if "_periodic_kernel" in name and (spills or r.get("stack")):
+            raise AssertionError(f"ptxas gives {name} local memory: {r}")
     if not any("_run_kernel" in name for name in report):
         raise AssertionError("no run kernel in ptxas's report")
+    for name in ("asymmetric_periodic_kernel", "symmetric_periodic_kernel"):
+        if name not in report:
+            raise AssertionError(f"no {name} in ptxas's report")
 
 
 def phase_division() -> dict:
@@ -695,6 +725,47 @@ def phase_division() -> dict:
         log(f"division {what}: equal to __fdiv_rn on all 2^46 significand "
             f"pairs ({out[what]['seconds']:.1f} s)")
     return out
+
+
+def periodic_ab(sources) -> list:
+    """The periodic detectors of other ``flit_sim.cu`` files (``sources``,
+    such as a parent commit's) and of this tree's in turns (each source,
+    the tree, then the same in reverse), in one process on one card, each
+    turn through :func:`periodic_records` at both shapes.  The libraries
+    are built together with the same flags; their ptxas reports, the
+    tree's too, are only logged (the full run fails on them).  Returns the
+    records of each turn."""
+    procs = []
+    for n, src in enumerate(sources):
+        out = _build.BUILD_DIR / "ab" / f"libflit_sim_{n}.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        procs.append((src, out, subprocess.Popen(
+            [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out), src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    _build.build(["flit_sim"])
+    libs = {}
+    for src, out, proc in procs:
+        text, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {src}:\n{text}")
+        log(f"source {src}:")
+        flit_ptxas(text, strict=False)
+        libs[src] = flit_kernel.declare(ctypes.CDLL(str(out)))
+    log("this tree's source:")
+    flit_ptxas(strict=False)
+    libs["tree"] = flit_kernel._lib()
+    shapes = kernel_shapes()
+    turns = []
+    for which in list(libs) + list(libs)[::-1]:
+        flit_kernel._LIB[:] = [libs[which]]
+        for label, ops_in in shapes.items():
+            recs = periodic_records(ops_in, label,
+                                    20 if label == "path" else 10)
+            for name, r in recs.items():
+                log(f"{which} {name} @ {label}: {json.dumps(r)}")
+            turns.append({"source": which, "shape": label, **recs})
+    flit_kernel._LIB[:] = [libs["tree"]]
+    return turns
 
 
 # -- phase 4: the main path ---------------------------------------------------
@@ -1846,10 +1917,20 @@ def lm_kernel_records(lm_records, serving):
 
 
 def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--periodic-ab", metavar="FLIT_SIM_CU", nargs="+",
+                    help="only time the periodic detectors of these "
+                         "flit_sim.cu files and of the tree's in turns")
+    args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
     card = card_line()
     log(f"card: {card}")
+    if args.periodic_ab:
+        turns = periodic_ab(args.periodic_ab)
+        print(card)
+        print(json.dumps({"periodic_ab": turns}))
+        return
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -1892,13 +1973,12 @@ def main() -> None:
             "path_plain_ms": records["path"][name]["plain_ms"],
             "path_bound_ms": records["path"][name]["bound_ms"],
         })
+        kernels[-1].update({
+            f"{where}{key}": rec[key]
+            for where, rec in (("", r), ("path_", records["path"][name]))
+            for key in ("back_to_back_ms", "card_ms", "k_exit") if key in rec})
         if "k_exit" in r:           # a run kernel, and its one-chunk kernel
             one = name.replace("_run", "_chunk")
-            kernels[-1].update({
-                f"{where}{key}": rec[key]
-                for where, rec in (("", r), ("path_", records["path"][name]))
-                for key in ("back_to_back_ms", "card_ms", "k_exit")
-                if key in rec})
             kernels[-1]["one_chunk"] = {
                 "name": one, "ms": big[one]["ms"],
                 "card_ms": big[one]["card_ms"],

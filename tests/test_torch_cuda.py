@@ -16,6 +16,7 @@ run on the card with
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 This file imports no JAX: the machine with the card has none."""
+import dataclasses
 import json
 import pathlib
 import sys
@@ -74,6 +75,72 @@ def test_periodic_kernels_equal_plain(dev):
     assert torch.equal(got, ref.symmetric_periodic_compute(rows,
                                                            n_flits=2048))
     assert ops.launches["symmetric_periodic"] == 1
+
+
+#: the planted cells of tests/test_torch_flit_sim_kernels.py (which says
+#: how they were found and holds each on its branch of the detectors'
+#: replay on the CPU): symmetric (protocol, scaled fields, read fraction,
+#: backlog) and asymmetric read fractions
+SYM_PLANTED = (("cxl_unopt", {}, 0.5, 2.0), ("cxl_unopt", {}, 0.44, 1.0),
+               ("cxl_unopt", {}, 0.0625, 0.25),
+               ("cxl_unopt", {}, 0.78125, 4.0),
+               ("chi", {"credit_lines": 2.0}, 0.5, 32.0),
+               ("cxl_opt", {"reqs_per_g": 0.5}, 1.0, 4.0),
+               ("cxl_unopt", {}, 0.03125, 0.25))
+ASYM_PLANTED = (0.0, 2.0 / 7.0, 3.0 / 32.0, 5.0 / 64.0,
+                (220.0 * np.sqrt(2.0)) % 1.0, 1.0 / np.sqrt(2.0), 1.0 / 65.0)
+
+
+def _asym_rows(dev, fracs):
+    ps = flitsim.AsymmetricLaneParams.stack(
+        list(flitsim.ASYMMETRIC_PARAMS.values()), dev)
+    x = torch.as_tensor(100.0 * np.asarray(fracs), dtype=torch.float32,
+                        device=dev)
+    return flitsim._asym_param_rows(ps, x, 100.0 - x)
+
+
+def _periodic_case(dev, case):
+    """(symmetric rows, asymmetric rows or None) of a periodic case."""
+    if case == "planted":
+        rows = np.zeros((ref.SYM_ROWS, len(SYM_PLANTED)), np.float32)
+        for c, (key, pert, frac, backlog) in enumerate(SYM_PLANTED):
+            p = flitsim.SYMMETRIC_PARAMS[key].perturbed(pert)
+            x = np.float32(100.0 * frac)
+            rows[:11, c] = [float(getattr(p, f.name))
+                            for f in dataclasses.fields(p)]
+            rows[11:14, c] = [x, np.float32(100.0) - x, backlog]
+        return torch.as_tensor(rows, device=dev), _asym_rows(dev,
+                                                             ASYM_PLANTED)
+    if case == "out of range":
+        return _out_of_range_sym(_sym_rows(dev, [1.0, 2.0, 4.0])), None
+    n = int(case.split()[0])
+    sym = _sym_rows(dev, [0.25, 0.5, 1.0, 2.0, 4.0], n=69)[:, :n]
+    asym = _asym_rows(dev, np.linspace(0.0, 1.0, 513))[:, :n]
+    return sym.contiguous(), asym.contiguous()
+
+
+@pytest.mark.parametrize("case", ["planted", "out of range", "1 cell",
+                                  "31 cells", "33 cells", "189 cells",
+                                  "1025 cells"])
+def test_periodic_kernels_bitwise(dev, case):
+    """Both periodic detectors bit for bit equal to their plain versions
+    on the planted cells, on cells whose divisions leave the reciprocal
+    division's range (the symmetric detector's passes run again with the
+    IEEE division), and across the ragged edge of the spread launch."""
+    sym, asym = _periodic_case(dev, case)
+    ops.reset_launches()
+    got = ops.symmetric_periodic(sym, n_flits=2048)
+    assert ops.launches["symmetric_periodic"] == 1
+    assert _same_bits(got, ref.symmetric_periodic_compute(sym,
+                                                          n_flits=2048))
+    if case == "planted":
+        assert got[2].tolist() == [1.0, 25.0, 64.0, 0.0, 1.0, 12.0, 0.0]
+    if asym is not None:
+        for n_accesses in (4096, 1000):
+            got = ops.asymmetric_periodic(asym, n_accesses=n_accesses)
+            assert _same_bits(got, ref.asymmetric_periodic_compute(
+                asym, n_accesses=n_accesses)), n_accesses
+        assert ops.launches["asymmetric_periodic"] == 2
 
 
 def test_chunk_kernel_equal_plain_over_a_run(dev):

@@ -12,6 +12,7 @@ fused multiply-adds while the port rounds every operation (its kernel and
 plain version must agree bit for bit); the observed gap is 1.3e-6 on the
 report row.
 """
+import dataclasses
 import functools
 
 import jax
@@ -81,6 +82,125 @@ def test_symmetric_periodic_plain_matches_reference(case, backlogs):
                                  n_flits=2048).numpy()
     np.testing.assert_array_equal(got[1:], want[1:])      # detected, period
     np.testing.assert_allclose(got[0], want[0], atol=1e-6)
+
+
+# -- planted cells: every branch of the CUDA detectors' replay --------------
+# Found by searching read fractions (rational with denominators up to 128,
+# multiples of sqrt(2) mod 1), backlogs 0.25-32 and scaled fields with the
+# port's plain detectors; pinned by their parameters, each with the period
+# the plain version reports (0: not detected).
+
+#: name -> ((protocol, scaled fields, read fraction, backlog), period)
+SYM_PLANTED = {
+    "d = 1": (("cxl_unopt", {}, 0.5, 2.0), 1),
+    "mid lag": (("cxl_unopt", {}, 0.44, 1.0), 25),
+    "d = 64": (("cxl_unopt", {}, 0.0625, 0.25), 64),
+    # the state matches at lag 8, but no delivery of the window's last
+    # step is an integer: not detected through the gate
+    "match beyond int_run": (("cxl_unopt", {}, 0.78125, 4.0), 0),
+    # the state enters its cycle after the window opens
+    "transient, d = 1": (("chi", {"credit_lines": 2.0}, 0.5, 32.0), 1),
+    "transient, d = 12": (("cxl_opt", {"reqs_per_g": 0.5}, 1.0, 4.0), 12),
+    "period 128": (("cxl_unopt", {}, 0.03125, 0.25), 0),
+}
+#: name -> (read fraction, period at 4096 accesses); (4096 - PERIOD_OBS)
+#: mod d is the r of the extrapolation
+ASYM_PLANTED = {
+    "d = 1": (0.0, 1),
+    "d = 7, r = 6": (2.0 / 7.0, 7),
+    "d = 32, r = 0": (3.0 / 32.0, 32),
+    "d = 64, r = 0": (5.0 / 64.0, 64),
+    "irrational, within eps at d = 63": ((220.0 * np.sqrt(2.0)) % 1.0, 63),
+    "irrational, no match": (1.0 / np.sqrt(2.0), 0),
+    "period 65": (1.0 / 65.0, 0),
+}
+
+
+def _planted_sym_rows(cells):
+    """Symmetric ``[SYM_ROWS, C]`` rows of (protocol, scaled fields, read
+    fraction, backlog) cells, built as ``_sym_param_rows`` builds them."""
+    rows = np.zeros((tref.SYM_ROWS, len(cells)), np.float32)
+    for c, (key, pert, frac, backlog) in enumerate(cells):
+        p = jf.SYMMETRIC_PARAMS[key].perturbed(pert)
+        x = np.float32(100.0 * frac)
+        rows[:11, c] = [getattr(p, f.name) for f in dataclasses.fields(p)]
+        rows[11:14, c] = [x, np.float32(100.0) - x, backlog]
+    return rows
+
+
+def _sym_window(rows):
+    """The plain symmetric observation of a ``[SYM_ROWS, C]`` CPU tensor:
+    the core after each window step ``[7, W, C]``, each step's delivery
+    ``[W, C]``, and a step function of the core."""
+    from repro_torch.core import flitsim as tf
+    p = tf.SymmetricFlitParams(*[rows[i] for i in range(11)])
+    step = tf._symmetric_stepfn(p, rows[11], rows[12], rows[13])
+    core = tuple(torch.zeros(rows.shape[1]) for _ in range(7))
+    for _ in range(tref.PERIOD_WARM):
+        core, _ = step(core)
+    win, nds = [], []
+    for _ in range(tref.PERIOD_WINDOW):
+        core, nd = step(core)
+        win.append(torch.stack(core))
+        nds.append(nd)
+    return torch.stack(win, dim=1), torch.stack(nds), step
+
+
+@pytest.mark.parametrize("name", sorted(SYM_PLANTED))
+def test_symmetric_periodic_planted_cells(name):
+    """Each planted cell on the reference and the port's plain detector
+    alike, and on the branch it was planted for: the smallest lag at which
+    the window's last core recurs exactly, the run of integer deliveries
+    that ends the window, a transient inside the window, a longer period."""
+    cell, period = SYM_PLANTED[name]
+    rows = _planted_sym_rows([cell])
+    want = np.asarray(jref.symmetric_periodic_compute(jnp.asarray(rows),
+                                                      n_flits=2048))
+    got = ops.symmetric_periodic(convert.rows(rows, "cpu"),
+                                 n_flits=2048).numpy()
+    np.testing.assert_array_equal(got[1:], want[1:])      # detected, period
+    np.testing.assert_allclose(got[0], want[0], atol=1e-6)
+    assert got[2, 0] == period
+    W = tref.PERIOD_WINDOW
+    win, nds, step = _sym_window(convert.rows(rows, "cpu"))
+    win, nds = win[:, :, 0], nds[:, 0]
+    lags = [d for d in range(1, tref.PERIOD_MAX + 1)
+            if torch.equal(win[:, W - 1], win[:, W - 1 - d])]
+    is_int = (torch.floor(nds) == nds).flip(0).tolist()
+    int_run = is_int.index(False) if False in is_int else W
+    if name == "match beyond int_run":
+        assert lags and lags[0] > int_run
+    elif name == "period 128":
+        assert not lags
+        core = tuple(win[:, W - 1][:, None])
+        seen = []
+        for _ in range(256):
+            core, _ = step(core)
+            seen.append(torch.stack(core)[:, 0])
+        assert [d for d in range(1, 129)
+                if torch.equal(seen[-1], seen[-1 - d])][0] == 128
+    else:
+        assert lags[0] == period <= int_run
+        transient = any(not torch.equal(win[:, s], win[:, s + period])
+                        for s in range(W - period))
+        assert transient == name.startswith("transient")
+
+
+@pytest.mark.parametrize("name", sorted(ASYM_PLANTED))
+@pytest.mark.parametrize("n_accesses", [4096, 1000])
+def test_asymmetric_periodic_planted_cells(name, n_accesses):
+    """Each planted mix on both lane protocols: the reference and the
+    port's plain detector alike, at the period pinned (the credit period
+    depends on the mix alone)."""
+    frac, period = ASYM_PLANTED[name]
+    rows = _asym_rows([frac])
+    want = np.asarray(jref.asymmetric_periodic_compute(
+        jnp.asarray(rows), n_accesses=n_accesses))
+    got = ops.asymmetric_periodic(convert.rows(rows, "cpu"),
+                                  n_accesses=n_accesses).numpy()
+    np.testing.assert_array_equal(got[1:], want[1:])      # detected, period
+    np.testing.assert_allclose(got[0], want[0], atol=1e-6)
+    assert got[2].tolist() == [period] * rows.shape[1]
 
 
 @functools.lru_cache(maxsize=1)
