@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --periodic-ab OLD/flit_sim.cu [OTHER.cu ...]
+    python3 chip_smoke.py --traces
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``).  Phases, each fatal
 on failure:
@@ -22,15 +23,28 @@ on failure:
    a spill fatal, and a stack frame of a periodic detector too; the run
    kernels' two reciprocal divisions against the IEEE
    quotient over all 2^46 pairs of f32 significands each, about 2 min),
-   ``pack_flits`` at 64 and 2^20 lines with the unpack round trip;
+   ``pack_flits`` at 64, 2^16 and 2^20 lines with the unpack round trip
+   (timed one call, back to back and on the card); the trace scans
+   ``symmetric_trace`` and ``asymmetric_trace`` (port kernels with no TPU
+   counterpart) at the serving frontier's shape (9 traces x 6 phases,
+   2048 and 4096 cycles a phase), at one phase (189 and 126 cells, also
+   against the fixed engine's static cells), at ragged phase counts from
+   ``pad_traces`` and at ~2^20 cells of 6 phases, bitwise, each timed one
+   call, back to back and on the card beside its bound and a logged
+   chain-latency estimate, the plain version timed once at each shape;
 4. main path, each path driven with the launch counts set to 0 just
    before it and read just after:
 
    a. the explorer's ``--bridge`` run on the card at full width, its
-      summary held against ``experiments/golden/design_space_summary.json``
-      (every section but the serving one; ``asymmetric_periodic``,
+      summary held against the whole of
+      ``experiments/golden/design_space_summary.json`` (``asymmetric_periodic``,
       ``symmetric_run``: one launch per adaptive symmetric run, each
-      runner's ``elapsed_s`` logged);
+      runner's ``elapsed_s`` logged; the serving section exactly one
+      ``symmetric_trace`` and one ``asymmetric_trace`` launch, its wall
+      logged, and once more with the plain trace cores on the card);
+   a'. the serving frontier alone, the card's run against the CPU's:
+      winner labels equal, ``trace_efficiency`` and the winners' GB/s
+      within 1e-6;
    b. a shallow-queue design space (backlogs 1, 2, 4 x 21 read
       fractions; ``symmetric_periodic``), its detected cells held bitwise
       against the fixed engine;
@@ -101,7 +115,9 @@ on failure:
 ``--periodic-ab`` runs only phases 1-2 and the periodic detectors of
 phase 3, for other ``flit_sim.cu`` files (a parent commit's, unpacked with
 ``git archive``) and this tree's in turns in one process, and prints one
-``{"periodic_ab": [...]}`` line last.
+``{"periodic_ab": [...]}`` line last.  ``--traces`` runs only phases 1-2
+and the trace kernels of phase 3, and prints one ``{"traces": {...}}``
+line last.
 """
 import argparse
 import contextlib
@@ -121,7 +137,7 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import _build, quickstart  # noqa: E402
+from repro_torch import _build, explorer, quickstart  # noqa: E402
 from repro_torch.configs import get as get_config  # noqa: E402
 from repro_torch.core import flitsim  # noqa: E402
 from repro_torch.core.space import ADAPTIVE_SIM, DesignSpace, axis  # noqa: E402
@@ -142,6 +158,10 @@ from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.serve import Request, ServingEngine  # noqa: E402
+from repro_torch.traces import (  # noqa: E402
+    DEFAULT_MODELS, DEFAULT_QPS, ModelTrafficSpec, TrafficTrace, pad_traces,
+    synthetic_serving_trace,
+)
 
 #: published peaks of one H100 SXM (NVIDIA data sheet): HBM bytes/s and
 #: f32 operations/s outside the tensor cores
@@ -176,6 +196,21 @@ SYM_REPORT_OPS = 60
 #: 16.  Only logged, as an estimate of the chain-latency bound of a run's
 #: steps (the bound that ranks a grid too small to fill the card)
 SYM_CHAIN_CYCLES = 24 * 4 + 16
+#: ... and of the asymmetric step's loop-carried chain, at nominal
+#: latencies, not measured: the credit's FADD, its SET and the FADD that
+#: drops it, 3 dependent operations at 4 cycles
+ASYM_CHAIN_CYCLES = 3 * 4
+#: cycles a phase of the serving frontier's trace scans (each family's
+#: static horizon)
+TRACE_CYCLES = {"symmetric_trace": 2048, "asymmetric_trace": 4096}
+#: f32 operations of a trace step beyond the plain step (the warm flag's
+#: product and the two adds; the asymmetric step has none) and of each
+#: phase's end (mix division, report)
+TRACE_STEP_EXTRA = {"symmetric_trace": 3, "asymmetric_trace": 0}
+TRACE_PHASE_OPS = 8
+#: parameter rows each trace kernel reads, and phase rows a phase
+TRACE_PARAM_ROWS = {"symmetric_trace": 11, "asymmetric_trace": 6}
+TRACE_PHASE_ROWS = {"symmetric_trace": 3, "asymmetric_trace": 2}
 #: the adaptive runs of the main path: horizon, chunk and tolerance
 #: (ADAPTIVE_SIM at the flit simulators' default horizons)
 SYM_RUN = dict(K=16, chunk=128, tol=1e-3)
@@ -187,6 +222,8 @@ SOURCES = {"symmetric_run": "src/repro_torch/csrc/flit_sim.cu",
            "asymmetric_periodic": "src/repro_torch/csrc/flit_sim.cu",
            "symmetric_periodic": "src/repro_torch/csrc/flit_sim.cu",
            "pipelining_run": "src/repro_torch/csrc/flit_sim.cu",
+           "symmetric_trace": "src/repro_torch/csrc/flit_sim.cu",
+           "asymmetric_trace": "src/repro_torch/csrc/flit_sim.cu",
            "pack_flits": "src/repro_torch/csrc/flit_pack.cu",
            "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
            "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu",
@@ -198,6 +235,9 @@ REPLACES = {"symmetric_run": "src/repro/kernels/flit_sim/kernel.py:84",
                 "src/repro/kernels/flit_sim/kernel.py:127",
             "pipelining_run":
                 "src/repro/kernels/flit_sim/kernel.py:152",
+            # no TPU kernel: the reference's XLA trace-scan cores
+            "symmetric_trace": "src/repro/core/flitsim.py:527",
+            "asymmetric_trace": "src/repro/core/flitsim.py:561",
             "pack_flits": "src/repro/kernels/flit_pack/kernel.py:66",
             "flash_attention_fwd":
                 "src/repro/kernels/flash_attention/kernel.py:93",
@@ -483,15 +523,19 @@ def check_pipelining_run(params, reps):
 
 def check_pack(n: int, reps: int):
     """``pack_flits`` vs ``pack_flits_ref`` on ``n`` random lines, then the
-    round trip.  Returns (max_abs, ms, plain_ms, flits)."""
+    round trip.  Returns a record: max_abs_err, one call, back to back and
+    on-card ms, the plain version's ms and the flits."""
     args = pack_inputs(n, seed=n)
     got = pack_ops.pack(*args)
     err = hold(f"pack_flits n={n}", got, pack_ref.pack_flits_ref(*args))
     round_trip(f"pack_flits n={n}", got, args)
-    ms = time_ms(lambda: pack_ops.pack(*args), reps)
-    plain = time_ms(lambda: pack_ref.pack_flits_ref(*args),
-                    max(reps // 5, 2))
-    return err, ms, plain, got.shape[0]
+    call = lambda: pack_ops.pack(*args)
+    return dict(max_abs_err=err, ms=time_ms(call, reps),
+                back_to_back_ms=stream_ms(call),
+                card_ms=kernel_ms(call, r"(flit_pack_kernel)")[
+                    "flit_pack_kernel"],
+                plain_ms=time_ms(lambda: pack_ref.pack_flits_ref(*args),
+                                 max(reps // 5, 2)), flits=got.shape[0])
 
 
 def check_periodic(name, fn, plain_fn, params, reps):
@@ -638,22 +682,22 @@ def phase_kernels():
             cells=cells, bound_ms=b, bound_by=by, **r)
 
         if label == "path":
-            err, ms, plain, flits = check_pack(64, reps)
-            log(f"kernel pack_flits @ 64 lines ({flits} flits): bitwise "
-                f"equal to plain, round trip good; kernel {ms:.4f} ms, "
-                f"plain {plain:.3f} ms")
+            r = check_pack(64, reps)
+            log(f"kernel pack_flits @ 64 lines ({r['flits']} flits): "
+                f"bitwise equal to plain, round trip good; kernel "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.3f} ms")
         n = ops_in["pack_flits"]
         log(f"checking pack_flits @ {label} ({n} lines)")
-        err, ms, plain, flits = check_pack(n, reps)
+        r = check_pack(n, reps)
+        flits = r.pop("flits")
         # bytes: every line, header and meta word read once, every flit
         # word written once; operations: one XOR per checksummed byte
         b, by = bound_ms(4.0 * (pack_ref.LINE_BYTES * n
                                 + (pack_ref.HS_BYTES + pack_ref.META_BYTES
                                    + pack_ref.FLIT_BYTES) * flits),
                          pack_ref.BODY_BYTES * flits)
-        records[label]["pack_flits"] = dict(
-            cells=n, max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b,
-            bound_by=by)
+        records[label]["pack_flits"] = dict(cells=n, bound_ms=b,
+                                            bound_by=by, **r)
         for name, r in records[label].items():
             run = "".join(f", {what} {r[key]:.4f} ms" for key, what in (
                 ("back_to_back_ms", "back to back"),
@@ -667,17 +711,170 @@ def phase_kernels():
     return records
 
 
+def trace_rows(traces, sym_traces=None):
+    """Operands of both trace kernels: the catalog protocols' parameter
+    rows over ``traces`` (the symmetric family over ``sym_traces`` where
+    given) and the phase rows of their read/write mixes and backlogs."""
+    out = []
+    for family, ts in (("symmetric", sym_traces or traces),
+                       ("asymmetric", traces)):
+        xs = torch.as_tensor(np.asarray([[100.0 * r for r in tr.read_fractions]
+                                         for tr in ts], np.float32),
+                             device=DEV)
+        grids = (xs, 100.0 - xs)
+        if family == "symmetric":
+            ps = flitsim.SymmetricFlitParams.stack(
+                list(flitsim.SYMMETRIC_PARAMS.values()), DEV)
+            bls = torch.as_tensor(np.asarray([list(tr.backlogs)
+                                              for tr in ts], np.float32),
+                                  device=DEV)
+            out.append(flitsim._trace_rows(ps, ref.SYM_ROWS, *grids, bls))
+        else:
+            pa = flitsim.AsymmetricLaneParams.stack(
+                list(flitsim.ASYMMETRIC_PARAMS.values()), DEV)
+            out.append(flitsim._trace_rows(pa, ref.ASYM_ROWS, *grids))
+    return out
+
+
+def random_traces(n: int, phases: int, seed: int):
+    """``n`` traces of ``phases`` phases: read fractions uniform in [0, 1],
+    backlogs in [1, 128]."""
+    rng = np.random.default_rng(seed)
+    rf = rng.uniform(0.0, 1.0, (n, phases))
+    bl = rng.uniform(1.0, 128.0, (n, phases))
+    return [TrafficTrace(f"t{i}", (1.0,) * phases, tuple(rf[i]),
+                         tuple(bl[i])) for i in range(n)]
+
+
+def trace_cases():
+    """Operands of the trace kernels: the serving frontier's 9 traces x 6
+    phases (the main path's shape), one phase at the bridge's 21 read
+    fractions x backlogs 2, 8, 64 (189 and 126 cells), ragged phase counts
+    padded by ``pad_traces`` (512 cycles a phase), ~2^20 cells of 6
+    phases."""
+    frontier = [synthetic_serving_trace(ModelTrafficSpec.from_name(m),
+                                        qps=q, name=f"{m}@q{q:g}")
+                for m in DEFAULT_MODELS for q in DEFAULT_QPS]
+    fr21 = np.linspace(0.0, 1.0, 21)
+    one = [TrafficTrace.steady(f"s{b:g}/{r:.2f}", float(r), b)
+           for b in (2.0, 8.0, 64.0) for r in fr21]
+    rng = np.random.default_rng(20)
+    ragged = pad_traces([TrafficTrace(
+        f"r{i}", (1.0,) * k, tuple(rng.uniform(0, 1, k)),
+        tuple(rng.uniform(1, 128, k)))
+        for i, k in enumerate((1, 6, 2, 3, 5, 4, 1, 6))])
+    return {
+        "path": (trace_rows(frontier), TRACE_CYCLES),
+        "one phase": (trace_rows(one[:21], one), TRACE_CYCLES),
+        "ragged": (trace_rows(ragged), {k: 512 for k in TRACE_CYCLES}),
+        "2^20 cells": (trace_rows(random_traces(1 << 19, 6, 21),
+                                  random_traces(349526, 6, 22)),
+                       TRACE_CYCLES),
+    }
+
+
+def once_ms(fn):
+    """``fn()``'s result and its CUDA-event time, ms, from one call."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def phase_traces():
+    """Both trace kernels against their plain versions at each case of
+    :func:`trace_cases`, bitwise (the one-phase case also against the
+    fixed engine's static cells); each timed one call, back to back and
+    on the card beside its bound (operations at the f32 peak, or bytes)
+    and a chain-latency estimate (logged only), the plain version timed
+    once.  Returns records per case."""
+    records = {}
+    for case, ((sym, asym), cycles) in trace_cases().items():
+        reps = 10 if case == "2^20 cells" else 20
+        for name, rows, fn, plain in (
+                ("symmetric_trace", sym, ops.symmetric_trace,
+                 ref.symmetric_trace_compute),
+                ("asymmetric_trace", asym, ops.asymmetric_trace,
+                 ref.asymmetric_trace_compute)):
+            cyc = cycles[name]
+            cells, phases = rows[0].shape[1], rows[1].shape[0]
+            log(f"checking {name} @ {case} ({cells} cells, {phases} phases "
+                f"x {cyc} cycles)")
+            want, plain_ms = once_ms(lambda: plain(*rows, cycles=cyc))
+            call = lambda: fn(*rows, cycles=cyc)
+            err = hold(f"{name} @ {case}", call(), want)
+            r = dict(max_abs_err=err, ms=time_ms(call, reps),
+                     back_to_back_ms=stream_ms(call),
+                     card_ms=kernel_ms(call, rf"({name}_kernel)")[
+                         f"{name}_kernel"], plain_ms=plain_ms)
+            steps = phases * cyc
+            step_ops = (SYM_STEP_OPS if name == "symmetric_trace"
+                        else ASYM_STEP_OPS) + TRACE_STEP_EXTRA[name]
+            b, by = bound_ms(
+                4.0 * cells * (TRACE_PARAM_ROWS[name]
+                               + (TRACE_PHASE_ROWS[name] + 1) * phases),
+                cells * (steps * step_ops + phases * TRACE_PHASE_OPS))
+            chain = steps * (SYM_CHAIN_CYCLES if name == "symmetric_trace"
+                             else ASYM_CHAIN_CYCLES)
+            r.update(cells=cells, phases=phases, cycles=cyc, bound_ms=b,
+                     bound_by=by)
+            records.setdefault(case, {})[name] = r
+            log(f"kernel {name} @ {case}: bitwise equal to plain; kernel "
+                f"{r['ms']:.4f} ms, back to back "
+                f"{r['back_to_back_ms']:.4f} ms, on the card "
+                f"{r['card_ms']:.4f} ms, plain {plain_ms:.2f} ms (once), "
+                f"bound {b:.5f} ms ({by}); chain-latency estimate "
+                f"{chain / max_sm_clock_hz() * 1e3:.4f} ms ({steps} steps x "
+                f"{chain // steps} cycles at nominal latencies, not "
+                f"measured)")
+            if case == "one phase":
+                fixed_cell(name, rows, cyc, want)
+    return records
+
+
+def fixed_cell(name, rows, cycles, got):
+    """A one-phase trace equals the fixed engine's static cell bitwise:
+    the symmetric rows are 21 read fractions x backlogs 2, 8, 64, the
+    asymmetric rows the 21 read fractions."""
+    fr = rows[1][0, :21]
+    if name == "symmetric_trace":
+        ps = flitsim.SymmetricFlitParams.stack(
+            list(flitsim.SYMMETRIC_PARAMS.values()), DEV)
+        fixed = flitsim._symmetric_grid(
+            ps, fr, 100.0 - fr, torch.tensor([2.0, 8.0, 64.0], device=DEV),
+            n_flits=cycles)
+    else:
+        pa = flitsim.AsymmetricLaneParams.stack(
+            list(flitsim.ASYMMETRIC_PARAMS.values()), DEV)
+        fixed = flitsim._asymmetric_grid(pa, fr, 100.0 - fr,
+                                         n_accesses=cycles)
+    hold(f"{name} one phase vs the fixed engine", got[0],
+         fixed.reshape(-1))
+    log(f"{name} @ one phase: bitwise equal to the fixed engine's "
+        f"{fixed.numel()} static cells")
+
+
 #: the flit-simulator kernels whose ptxas report ``flit_ptxas`` logs
 FLIT_KERNELS = ("symmetric_chunk_kernel", "symmetric_run_kernel",
                 "pipelining_chunk_kernel", "pipelining_run_kernel",
-                "asymmetric_periodic_kernel", "symmetric_periodic_kernel")
+                "asymmetric_periodic_kernel", "symmetric_periodic_kernel",
+                "symmetric_trace_kernel", "asymmetric_trace_kernel")
+#: kernels for which a stack frame is fatal too (they keep everything in
+#: registers by design)
+NO_STACK_KERNELS = ("asymmetric_periodic_kernel",
+                    "symmetric_periodic_kernel", "symmetric_trace_kernel",
+                    "asymmetric_trace_kernel")
 
 
 def flit_ptxas(text=None, strict: bool = True) -> None:
     """Log ptxas's registers, stack frame (local memory) and spills of
     every flit-simulator kernel in a build log (default: this build's); a
     spill in a chunk or run kernel, or a stack frame or spill in a
-    periodic detector, fails the run unless not ``strict``."""
+    periodic detector or a trace scan, fails the run unless not
+    ``strict``."""
     text = _build.BUILD_LOG.get("flit_sim") if text is None else text
     if text is None:
         log("ptxas [flit_sim]: library was already built, no report")
@@ -692,12 +889,12 @@ def flit_ptxas(text=None, strict: bool = True) -> None:
         spills = r.get("spill_stores") or r.get("spill_loads")
         if ("_chunk_kernel" in name or "_run_kernel" in name) and spills:
             raise AssertionError(f"ptxas spills in {name}: {r}")
-        if "_periodic_kernel" in name and (spills or r.get("stack")):
+        if name.startswith(NO_STACK_KERNELS) and (spills or r.get("stack")):
             raise AssertionError(f"ptxas gives {name} local memory: {r}")
     if not any("_run_kernel" in name for name in report):
         raise AssertionError("no run kernel in ptxas's report")
-    for name in ("asymmetric_periodic_kernel", "symmetric_periodic_kernel"):
-        if name not in report:
+    for name in NO_STACK_KERNELS:
+        if not any(k.startswith(name) for k in report):
             raise AssertionError(f"no {name} in ptxas's report")
 
 
@@ -821,22 +1018,59 @@ def one_launch_per_run(path: str, counts: dict, runs: dict) -> str:
                               for r in rs] for name, rs in runs.items()})
 
 
+@contextlib.contextmanager
+def serving_section(store: dict):
+    """Records the serving section's wall (s, the card's work included)
+    and the kernel launches made inside it, in ``store``."""
+    real = explorer.serving_frontier_report
+
+    def timed(*a, **kw):
+        before = read_counts()
+        t0 = time.perf_counter()
+        rep = real(*a, **kw)
+        torch.cuda.synchronize()
+        store["wall_s"] = time.perf_counter() - t0
+        store["launches"] = {k: n - before[k]
+                             for k, n in read_counts().items()
+                             if n != before[k]}
+        return rep
+    explorer.serving_frontier_report = timed
+    try:
+        yield
+    finally:
+        explorer.serving_frontier_report = real
+
+
+@contextlib.contextmanager
+def plain_trace_cores():
+    """The trace wrappers replaced by their plain versions, on the card:
+    what the serving section would cost without the kernels."""
+    saved = ops.symmetric_trace, ops.asymmetric_trace
+    ops.symmetric_trace = ref.symmetric_trace_compute
+    ops.asymmetric_trace = ref.asymmetric_trace_compute
+    try:
+        yield
+    finally:
+        ops.symmetric_trace, ops.asymmetric_trace = saved
+
+
 def phase_main_path():
     golden = json.loads(
         (ROOT / "experiments/golden/design_space_summary.json").read_text())
     summarize = load_summarize()
     log("main path: bridge on the card")
     runs: dict = {}
+    serving: dict = {}
     reset_counts()
     t0 = time.perf_counter()
-    with runner_times(runs):
+    with runner_times(runs), serving_section(serving):
         ds = bridge_mode(device="cuda", verbose=False)
     torch.cuda.synchronize()
     bridge_s = time.perf_counter() - t0
     bridge_counts = read_counts()
     got = summarize(ds)
-    bad = [k for k in golden if k != "serving_frontier"
-           and got.get(k) != golden[k]]
+    bad = sorted(set(golden) | set(got))
+    bad = [k for k in bad if got.get(k) != golden.get(k)]
     if bad:
         raise AssertionError(f"bridge summary differs from the golden in "
                              f"sections {bad}")
@@ -844,10 +1078,34 @@ def phase_main_path():
         if bridge_counts[name] <= 0:
             raise AssertionError(f"the bridge never launched {name}")
     elapsed = one_launch_per_run("the bridge", bridge_counts, runs)
-    held = sorted(k for k in golden if k != "serving_frontier")
+    want = {"symmetric_trace": 1, "asymmetric_trace": 1}
+    if serving["launches"] != want or \
+            ds["serving_frontier"]["launches"] != want:
+        raise AssertionError(f"the serving section launched "
+                             f"{serving['launches']}, want {want}")
+    runners = {fam: d["elapsed_s"] for fam, d in
+               ds["serving_frontier"]["telemetry"].items()}
     log(f"main path: bridge on the card in {bridge_s:.2f} s, summary "
-          f"equals the golden on {held}; launches {bridge_counts}; "
-          f"adaptive runs {elapsed}")
+          f"equals the whole golden ({sorted(golden)}); launches "
+          f"{bridge_counts}; adaptive runs {elapsed}; serving section "
+          f"{serving['wall_s']:.4f} s, launches {serving['launches']}, "
+          f"trace runners' elapsed_s {runners}")
+    t0 = time.perf_counter()
+    with plain_trace_cores():
+        plain = explorer.serving_frontier_report(device="cuda",
+                                                 verbose=False)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if plain["winner_by_model_qps"] != \
+            ds["serving_frontier"]["winner_by_model_qps"]:
+        raise AssertionError("the plain trace cores on the card pick other "
+                             "serving winners than the kernels")
+    serving["plain_wall_s"] = plain_s
+    log(f"main path: serving section with the plain trace cores on the "
+        f"card: {plain_s:.3f} s (with the kernels {serving['wall_s']:.4f} "
+        f"s), the same winners")
+    serving["frontier_vs_cpu"] = phase_serving_frontier(
+        ds["serving_frontier"])
 
     # shallow queues: the symmetric periodic detector's path
     fracs = np.linspace(0.0, 1.0, 21)
@@ -881,9 +1139,48 @@ def phase_main_path():
     log(f"shallow-queue space: launches {shallow_counts}; "
           f"{int(det.sum())} detected cells bitwise equal to the fixed "
           f"engine")
-    return {"bridge": bridge_counts, "shallow": shallow_counts,
+    return {"bridge": bridge_counts, "serving": serving,
+            "shallow": shallow_counts,
             "fig13": phase_fig13(), "sweep": phase_sweep(),
             "quickstart": phase_quickstart(), "flit_pack": phase_flit_pack()}
+
+
+def phase_serving_frontier(card: dict) -> dict:
+    """The serving frontier alone: the bridge's section from the card
+    against the same section on the CPU (winner labels equal exactly, the
+    winners' GB/s within 1e-6), and ``trace_efficiency`` over the same
+    traces on both devices within 1e-6."""
+    from repro_torch.core.ucie import UCIE_A_32G_55U
+    log("main path: the serving frontier, card against the CPU")
+    t0 = time.perf_counter()
+    cpu = explorer.serving_frontier_report(device="cpu", verbose=False)
+    cpu_s = time.perf_counter() - t0
+    for key in ("winner_by_model_qps", "protocol_by_model_qps",
+                "qps_sensitive", "traces", "trace_names"):
+        if card[key] != cpu[key]:
+            raise AssertionError(f"serving frontier {key} differ between "
+                                 f"the card and the CPU")
+    err_gbs = close("serving winners' GB/s card vs CPU",
+                    [v for m in card["models"] for v in
+                     card["winner_gbs_by_model_qps"][m].values()],
+                    [v for m in cpu["models"] for v in
+                     cpu["winner_gbs_by_model_qps"][m].values()], 1e-6)
+    traces = [TrafficTrace(name, **card["traces"][name])
+              for name in card["trace_names"]]
+    eff = {}
+    for dev in ("cuda", "cpu"):
+        eff[dev] = DesignSpace([axis("trace", traces)], phy=UCIE_A_32G_55U,
+                               device=dev).evaluate(
+            metrics=("trace_efficiency", "trace_phase_efficiency"))
+    err_eff = max(close(f"{m} card vs CPU", eff["cuda"][m].values,
+                        eff["cpu"][m].values, 1e-6)
+                  for m in ("trace_efficiency", "trace_phase_efficiency"))
+    log(f"main path: serving frontier card vs CPU: winners equal "
+        f"({card['winner_by_model_qps']}), winners' GB/s max |diff| "
+        f"{err_gbs}, trace efficiency max |diff| {err_eff}; the CPU's "
+        f"section {cpu_s:.2f} s")
+    return {"max_abs_gbs": err_gbs, "max_abs_efficiency": err_eff,
+            "cpu_wall_s": cpu_s}
 
 
 def phase_fig13():
@@ -1440,25 +1737,31 @@ def ssd_inputs(case, gen, slow=False, init=False):
 
 
 def kernel_ms(fn, pattern: str, calls: int = 5) -> dict:
-    """Device ms a call of each kernel whose name matches ``pattern``, by
+    """Device ms a launch of each kernel whose name matches ``pattern``, by
     the pattern's first group, from ``torch.profiler`` over ``calls``
-    calls."""
+    calls: the mean over the launches the profiler recorded (it does not
+    always record every launch; fewer are logged)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    out = {}
     for _ in range(3):          # the profiler now and then records nothing
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
+        us, seen = {}, {}
         for evt in prof.events():
             m = re.search(pattern, evt.name)
             if evt.device_type == torch.autograd.DeviceType.CUDA and m:
-                out[m.group(1)] = out.get(m.group(1), 0.0) + \
-                    evt.time_range.elapsed_us() / 1e3 / calls
-        if out:
-            return out
+                us[m.group(1)] = us.get(m.group(1), 0.0) + \
+                    evt.time_range.elapsed_us()
+                seen[m.group(1)] = seen.get(m.group(1), 0) + 1
+        if us:
+            short = {k: n for k, n in seen.items() if n < calls}
+            if short:
+                log(f"the profiler recorded {short} of {calls} calls' "
+                    f"launches")
+            return {k: us[k] / 1e3 / seen[k] for k in us}
     raise AssertionError(f"the profiler saw no kernel {pattern}")
 
 
@@ -1921,6 +2224,8 @@ def main() -> None:
     ap.add_argument("--periodic-ab", metavar="FLIT_SIM_CU", nargs="+",
                     help="only time the periodic detectors of these "
                          "flit_sim.cu files and of the tree's in turns")
+    ap.add_argument("--traces", action="store_true",
+                    help="only check and time the trace-scan kernels")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -1930,6 +2235,13 @@ def main() -> None:
         turns = periodic_ab(args.periodic_ab)
         print(card)
         print(json.dumps({"periodic_ab": turns}))
+        return
+    if args.traces:
+        _build.build(["flit_sim"])
+        flit_ptxas()
+        records = phase_traces()
+        print(card)
+        print(json.dumps({"traces": records}))
         return
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
@@ -1943,6 +2255,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False   # plain f32 is f32
     torch.backends.cudnn.allow_tf32 = False
     records = phase_kernels()
+    trace_records = phase_traces()
     phase_division()
     lm_records = phase_lm_kernels()
     lm_records["rglru_scan"] = phase_lru_kernel()
@@ -1986,6 +2299,26 @@ def main() -> None:
                 "path_card_ms": records["path"][one]["card_ms"],
                 "bound_ms": big[one]["bound_ms"],
                 "path_bound_ms": records["path"][one]["bound_ms"]}
+    for name in ("symmetric_trace", "asymmetric_trace"):
+        r, path = trace_records["2^20 cells"][name], \
+            trace_records["path"][name]
+        kernels.append({
+            "name": name, "route": "cuda", "source": SOURCES[name],
+            "replaces": REPLACES[name], "tpu_kernel": False,
+            "launches": counts["serving"]["launches"][name],
+            "launches_from": "bridge serving section",
+            "max_abs_err": max(rec[name]["max_abs_err"]
+                               for rec in trace_records.values()),
+            **{k: r[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "back_to_back_ms", "card_ms", "cells",
+                                 "phases", "cycles")},
+            "library_ms": None,
+            **{f"path_{k}": path[k] for k in (
+                "ms", "plain_ms", "bound_ms", "back_to_back_ms", "card_ms",
+                "cells", "phases", "cycles")},
+            "serving_wall_s": counts["serving"]["wall_s"],
+            "serving_plain_wall_s": counts["serving"]["plain_wall_s"],
+        })
     kernels += lm_kernel_records(lm_records, serving)
     print(card)
     print(json.dumps({"kernels": kernels}))

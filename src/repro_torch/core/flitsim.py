@@ -37,6 +37,12 @@ Execution modes (:class:`repro_torch.core.space.SimConfig`):
   Unconverged stragglers (large grids only) and undetected periodic cells
   are re-simulated exactly at the full fixed horizon.
 
+Trace-scan mode (:func:`simulate_trace_grid`, the design space's ``trace``
+axis) runs each family's phases back to back with the queue/credit state
+carried across phase boundaries, in ONE launch per family on the card
+(the ``symmetric_trace`` and ``asymmetric_trace`` kernels) and in their
+plain versions on the CPU.
+
 Every entry point takes ``device=`` (default ``"cuda"``; see
 :mod:`repro_torch.device`).
 """
@@ -387,6 +393,68 @@ def _asymmetric_cells_grid(pcells, xs, ys, *, n_accesses: int):
     return _asymmetric_efficiency(pcells, xs, ys, n_accesses)
 
 
+# -- trace-scan cores (the DesignSpace ``trace`` axis) ------------------------
+#
+# A trace is a sequence of (read_fraction, backlog) phases; the trace-scan
+# cores run the phases BACK TO BACK through the shared single-cycle step
+# functions, carrying the queue/credit state across every phase boundary —
+# a write buffer filled by a prefill burst drains INTO the next decode
+# phase instead of being reset.  Every phase runs the same ``cycles``
+# count; phase DURATIONS are aggregation weights the design space applies
+# on the host.  Accounting resets per phase; phase 0 keeps the fixed
+# engine's quarter warm-up (so a SINGLE-phase trace is bitwise equal to
+# the fixed static cell) and later phases count every cycle — their
+# "warm-up" is the real carried transient.  These are the plain versions
+# of the ``symmetric_trace`` / ``asymmetric_trace`` kernels
+# (``kernels/flit_sim/ref.py`` calls them on row-stacked cells), in the
+# reference's expression order.
+
+
+def _symmetric_trace_grid(p: SymmetricFlitParams, xs, ys, bls, *,
+                          cycles: int) -> torch.Tensor:
+    """Per-phase efficiency ``[N, ...]`` of symmetric cells over a phase
+    sequence, queue/credit state carried: ``xs`` / ``ys`` / ``bls`` hold
+    one tensor per phase, each broadcasting against ``p``'s fields."""
+    core, effs = None, []
+    for n, (x, y, b) in enumerate(zip(xs, ys, bls)):
+        step = _symmetric_stepfn(p, x, y, b)
+        if core is None:
+            core = (_zeros_like_all(x, y, b, p.g_slots),) * 7
+        thresh = cycles // 4 if n == 0 else 0
+        data_slots = torch.zeros_like(core[0])
+        warm_slots = torch.zeros_like(core[0])
+        for warm in range(1, cycles + 1):
+            core, new_data = step(core)
+            is_warm = 1.0 if warm > thresh else 0.0
+            data_slots = data_slots + new_data * is_warm
+            warm_slots = warm_slots + is_warm
+        data_bits = data_slots * 128.0
+        cap_bits = 2.0 * warm_slots * p.flit_bits
+        effs.append(data_bits / cap_bits)
+    return torch.stack(effs)
+
+
+def _asymmetric_trace_grid(p: AsymmetricLaneParams, xs, ys, *,
+                           cycles: int) -> torch.Tensor:
+    """Per-phase efficiency ``[N, ...]`` of asymmetric cells: lane clocks
+    and the read/write credit carry across phases; each phase's efficiency
+    comes from its lane-time DELTA."""
+    core, t_prev, effs = None, None, []
+    for x, y in zip(xs, ys):
+        step = _asymmetric_stepfn(p, x, y)
+        if core is None:
+            core = (_zeros_like_all(x, y, p.total_lanes),) * 4
+            t_prev = core[0]
+        for _ in range(cycles):
+            core = step(core)
+        t_r, t_w, t_c, _ = core
+        t_total = torch.maximum(torch.maximum(t_r, t_w), t_c)
+        effs.append(torch.full_like(t_total, 512.0 * cycles)
+                    / (p.total_lanes * (t_total - t_prev)))
+        t_prev = t_total
+    return torch.stack(effs)
+
+
 # -- adaptive schedule --------------------------------------------------------
 
 #: max pool movement per chunk (slots) still considered "steady"
@@ -442,10 +510,15 @@ def last_run_info() -> Dict[str, Dict[str, Any]]:
     ``elapsed_s``, ``cycles_per_sec_per_cell``, and a ``converged_cycles``
     histogram ({cycles: cell count}; stragglers count under
     ``"horizon"``).  Periodic runs add a ``periods`` histogram.  Fixed
-    runs do not update it."""
+    runs do not update it.  Trace-scan runs are kept under
+    ``family + ".trace"`` with ``mode="trace"`` (see
+    :func:`_record_trace`)."""
     out: Dict[str, Dict[str, Any]] = {}
     for fam, info in _LAST_RUN_INFO.items():
         d = {k: v for k, v in info.items() if not k.startswith("_")}
+        if d["mode"] == "trace":
+            out[fam] = d
+            continue
         chunk = d["chunk"]
         conv_at = np.asarray(info["_conv_at"]).reshape(-1)
         d["cycles_run"] = int(info["_k_exit"]) * chunk
@@ -475,6 +548,24 @@ def _record_adaptive(family: str, horizon: int, chunk: int, k_exit: int,
         "stragglers": int(stragglers), "engine": engine,
         "launches": int(launches), "elapsed_s": elapsed_s,
         "_k_exit": int(k_exit), "_conv_at": conv_at, "_periods": periods,
+    }
+
+
+def _record_trace(family: str, phases: int, cycles: int, cells: int, *,
+                  engine: str, elapsed_s: float) -> None:
+    """Telemetry of a trace-scan run, keyed ``family + ".trace"`` so it
+    never clobbers the same family's adaptive record: per-phase cycle
+    count, total cycles, grid cells simulated, the state-carry depth
+    (cycles whose initial state came from a PREVIOUS phase), the engine
+    (``"cuda"``: the trace kernel, ``"plain"``: its plain version) and
+    the runner's wall seconds (the card's work included)."""
+    _LAST_RUN_INFO[family + ".trace"] = {
+        "mode": "trace", "phases": int(phases),
+        "cycles_per_phase": int(cycles),
+        "cycles_run": int(phases) * int(cycles),
+        "trace_cells": int(cells),
+        "state_carry_depth": (int(phases) - 1) * int(cycles),
+        "engine": engine, "elapsed_s": elapsed_s,
     }
 
 
@@ -556,6 +647,22 @@ def _pipe_param_rows(ks, ucie_line_uis, device_line_uis):
             device_line_uis.repeat(Kk * U)]
     pad = torch.zeros_like(rows[0])
     return torch.stack(rows + [pad] * (fs_ref.PIPE_ROWS - len(rows)))
+
+
+def _trace_rows(pstack, n_rows: int, *phase_grids):
+    """Row-stack a trace grid for the trace kernels: parameter rows
+    ``[n_rows, P*T]`` (the dataclass fields in order, pad rows zero) and,
+    per ``[T, N]`` phase grid, its ``[N, P*T]`` rows (cell ``p*T + t``, so
+    an output ``[N, P*T]`` reshapes to ``[N, P, T]``)."""
+    names = [f.name for f in dataclasses.fields(pstack)]
+    first = getattr(pstack, names[0])
+    T = phase_grids[0].shape[0]
+    rows = [getattr(pstack, n).repeat_interleave(T) for n in names]
+    params = torch.zeros((n_rows, first.shape[0] * T), dtype=F32,
+                         device=first.device)
+    params[:len(rows)] = torch.stack(rows)
+    return (params,) + tuple(g.t().repeat(1, first.shape[0])
+                             for g in phase_grids)
 
 
 def _scal_row(values, device) -> torch.Tensor:
@@ -869,6 +976,36 @@ def _run_pipelining(ks, ucie_line_uis, device_line_uis, max_k: int,
     return rep
 
 
+def _run_trace(family: str, pstack, n_rows: int, cycles: int, *grids):
+    """Trace-scan runner: ``grids`` are the ``[T, N]`` phase grids of the
+    family's kernel (``xs`` / ``ys`` and, symmetric, ``bls``); ONE trace
+    kernel launch on the card (its plain version on the CPU) returns
+    per-phase efficiency ``[P, T, N]``."""
+    from repro_torch.kernels.flit_sim import ops as fs_ops
+    first = getattr(pstack, dataclasses.fields(pstack)[0].name)
+    P, (T, N), dev = first.shape[0], grids[0].shape, grids[0].device
+    t0 = time.perf_counter()
+    out = getattr(fs_ops, family + "_trace")(
+        *_trace_rows(pstack, n_rows, *grids), cycles=cycles)
+    rep = out.reshape(N, P, T).permute(1, 2, 0)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    _record_trace("flitsim." + family, N, cycles, P * T,
+                  engine="cuda" if dev.type == "cuda" else "plain",
+                  elapsed_s=time.perf_counter() - t0)
+    return rep
+
+
+def _run_symmetric_trace(pstack, xs, ys, bls, cycles: int) -> torch.Tensor:
+    from repro_torch.kernels.flit_sim.ref import SYM_ROWS
+    return _run_trace("symmetric", pstack, SYM_ROWS, cycles, xs, ys, bls)
+
+
+def _run_asymmetric_trace(pstack, xs, ys, cycles: int) -> torch.Tensor:
+    from repro_torch.kernels.flit_sim.ref import ASYM_ROWS
+    return _run_trace("asymmetric", pstack, ASYM_ROWS, cycles, xs, ys)
+
+
 # -- engine entry point (what DesignSpace lowers onto) ------------------------
 
 #: The five canonical read:write mixes every validation sweep covers.
@@ -900,22 +1037,11 @@ ANALYTIC = {
 }
 
 
-def simulate_grid(protocols: Sequence[str], x, y, backlogs, *,
-                  perturbations: Optional[Sequence[Mapping[str, float]]]
-                  = None,
-                  n_flits: int = 2048,
-                  n_accesses: int = 4096,
-                  sim: Optional[SimConfig] = None,
-                  device=None) -> torch.Tensor:
-    """Evaluate the full ``[Q perturbations, P protocols, B backlogs,
-    M mixes]`` grid, one engine run per simulator family.
-
-    ``x`` / ``y`` are flat ``[M]`` mix arrays; ``backlogs`` is ``[B]``
-    (symmetric family only — asymmetric rows broadcast across it).
-    ``perturbations`` are multiplicative ``{field: scale}`` overrides
-    folded into the parameter stacks.  Returns efficiency ``[Q, P, B, M]``
-    on ``device``."""
-    dev = device_mod.resolve(device)
+def _checked(protocols: Sequence[str],
+             perturbations: Optional[Sequence[Mapping[str, float]]]):
+    """``(keys, perturbation dicts)``, refusing unknown protocol keys and
+    perturbations that touch no field of the selected families (which
+    would silently label a baseline row as perturbed)."""
     keys = tuple(protocols)
     unknown = sorted(k for k in keys
                      if k not in SYMMETRIC_PARAMS
@@ -938,6 +1064,26 @@ def simulate_grid(protocols: Sequence[str], x, y, backlogs, *,
                 f"perturbation {p} applies to no parameter of the selected "
                 f"protocols {keys}; applicable fields: "
                 f"{sorted(active_fields)}")
+    return keys, perts
+
+
+def simulate_grid(protocols: Sequence[str], x, y, backlogs, *,
+                  perturbations: Optional[Sequence[Mapping[str, float]]]
+                  = None,
+                  n_flits: int = 2048,
+                  n_accesses: int = 4096,
+                  sim: Optional[SimConfig] = None,
+                  device=None) -> torch.Tensor:
+    """Evaluate the full ``[Q perturbations, P protocols, B backlogs,
+    M mixes]`` grid, one engine run per simulator family.
+
+    ``x`` / ``y`` are flat ``[M]`` mix arrays; ``backlogs`` is ``[B]``
+    (symmetric family only — asymmetric rows broadcast across it).
+    ``perturbations`` are multiplicative ``{field: scale}`` overrides
+    folded into the parameter stacks.  Returns efficiency ``[Q, P, B, M]``
+    on ``device``."""
+    dev = device_mod.resolve(device)
+    keys, perts = _checked(protocols, perturbations)
     x = _f32(np.asarray(x).reshape(-1), dev)
     y = _f32(np.asarray(y).reshape(-1), dev)
     b = _f32(np.asarray(backlogs).reshape(-1), dev)
@@ -963,6 +1109,63 @@ def simulate_grid(protocols: Sequence[str], x, y, backlogs, *,
         for i, k in enumerate(asym_keys):
             per_key[k] = grid[:, i, None, :].expand(n_q, n_b, n_m)
     return torch.stack([per_key[k] for k in keys], dim=1)   # [Q, P, B, M]
+
+
+def simulate_trace_grid(protocols: Sequence[str], xs, ys, backlogs, *,
+                        perturbations: Optional[
+                            Sequence[Mapping[str, float]]] = None,
+                        n_flits: int = 2048, n_accesses: int = 4096,
+                        sim: Optional[SimConfig] = None,
+                        device=None) -> torch.Tensor:
+    """Evaluate ``T`` traffic traces of ``N`` phases each through the
+    trace-scan cores: per-PHASE efficiency ``[Q, P, T, N]`` on ``device``.
+
+    ``xs`` / ``ys`` / ``backlogs`` are ``[T, N]`` phase grids (read / write
+    mix percentages and queue backlog per phase).  Queue and credit state
+    carries across phase boundaries inside each (protocol, trace) cell, so
+    phase ``n``'s efficiency includes the transient inherited from phase
+    ``n-1``; a single-phase trace is bitwise equal to the fixed static
+    cell at the same (mix, backlog).  Asymmetric protocols ignore the
+    backlog grid, exactly as in :func:`simulate_grid`.  Every phase runs
+    ``sim.trace_cycles`` cycles (default: the family's static horizon —
+    ``n_flits`` symmetric, ``n_accesses`` asymmetric) whatever ``sim``'s
+    mode.  Phase DURATIONS are not consumed here: the design space applies
+    them as aggregation weights over the returned per-phase grid."""
+    dev = device_mod.resolve(device)
+    sim = sim if sim is not None else FIXED_SIM
+    keys, perts = _checked(protocols, perturbations)
+    xs = np.asarray(xs, np.float32)
+    ys = np.asarray(ys, np.float32)
+    bls = np.asarray(backlogs, np.float32)
+    if xs.ndim != 2 or xs.shape != ys.shape or xs.shape != bls.shape:
+        raise ValueError(
+            f"trace phase grids must share one [T, N] shape; got "
+            f"xs {xs.shape}, ys {ys.shape}, backlogs {bls.shape}")
+    n_q, (n_t, n_p) = len(perts), xs.shape
+    xs, ys, bls = _f32(xs, dev), _f32(ys, dev), _f32(bls, dev)
+
+    per_key: Dict[str, torch.Tensor] = {}            # key -> [Q, T, N]
+    sym_keys = [k for k in keys if k in SYMMETRIC_PARAMS]
+    if sym_keys:
+        pstack = SymmetricFlitParams.stack(
+            [SYMMETRIC_PARAMS[k].perturbed(p) for p in perts
+             for k in sym_keys], dev)
+        grid = _run_symmetric_trace(pstack, xs, ys, bls,
+                                    int(sim.trace_cycles or n_flits))
+        grid = grid.reshape((n_q, len(sym_keys), n_t, n_p))
+        for i, k in enumerate(sym_keys):
+            per_key[k] = grid[:, i]
+    asym_keys = [k for k in keys if k in ASYMMETRIC_PARAMS]
+    if asym_keys:
+        pstack = AsymmetricLaneParams.stack(
+            [ASYMMETRIC_PARAMS[k].perturbed(p) for p in perts
+             for k in asym_keys], dev)
+        grid = _run_asymmetric_trace(pstack, xs, ys,
+                                     int(sim.trace_cycles or n_accesses))
+        grid = grid.reshape((n_q, len(asym_keys), n_t, n_p))
+        for i, k in enumerate(asym_keys):
+            per_key[k] = grid[:, i]
+    return torch.stack([per_key[k] for k in keys], dim=1)   # [Q, P, T, N]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -9,9 +9,9 @@ reference's ``design_space.json`` sections:
 * ``"phy"`` — the PHY-stacked analytic frontier (UCIe-A/S, 32G + 48G).
 * ``"sim_phy"`` — its cycle-level counterpart (simulated efficiency x raw
   PHY bandwidth, per queue depth).
+* ``"serving"`` — the per-(model, QPS) serving-trace winner map.
 
-The serving section waits for the traces slice.  Every section runs on
-``device`` (default ``"cuda"``).
+Every section runs on ``device`` (default ``"cuda"``).
 """
 from __future__ import annotations
 
@@ -24,7 +24,8 @@ import numpy as np
 __all__ = ["FrontierReport", "ReportSpec", "build_report"]
 
 #: sections that need no DesignSpace instance (they build their own)
-STANDALONE_SECTIONS: Tuple[str, ...] = ("joint", "phy", "sim_phy")
+STANDALONE_SECTIONS: Tuple[str, ...] = ("joint", "phy", "sim_phy",
+                                        "serving")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,7 +71,8 @@ def build_report(spec: Optional[ReportSpec] = None, *, space=None,
     dev = device_mod.resolve(device)
     spec = spec if spec is not None else ReportSpec()
     builders = {"frontier": _frontier_section, "joint": _joint_section,
-                "phy": _phy_section, "sim_phy": _sim_phy_section}
+                "phy": _phy_section, "sim_phy": _sim_phy_section,
+                "serving": _serving_section}
     unknown = [s for s in spec.sections if s not in builders]
     if unknown:
         raise ValueError(f"unknown report sections {unknown}; choose "
@@ -209,7 +211,8 @@ def _sim_phy_section(space, verbose, device, *, n_fracs: int = 21,
     dt = time.perf_counter() - t0
     bw = res["sim_bandwidth_gbs"]      # [protocol, phy, backlog, mix]
     info = flitsim.last_run_info()
-    cycles = {fam.split(".")[1]: info[fam]["cycles_run"] for fam in info}
+    cycles = {fam.split(".")[1]: d["cycles_run"] for fam, d in info.items()
+              if d["mode"] == "adaptive"}
     if verbose:
         print(f"sim-phy frontier: {len(bw.coord('protocol'))} protocols "
               f"x {len(phys)} PHYs x {len(backlogs)} backlogs x "
@@ -251,3 +254,15 @@ def _sim_phy_section(space, verbose, device, *, n_fracs: int = 21,
     report["shallow_queue_disagrees"] = {
         name: shallow[name] != deep_w[name] for name in shallow}
     return report
+
+
+def _serving_section(space, verbose, device, *, models=None,
+                     qps_points=None, **kwargs) -> Dict[str, Any]:
+    from repro_torch.core.space import DesignSpace
+    rep = DesignSpace.serving_frontier(models, qps_points, device=device,
+                                       **kwargs)
+    if verbose:
+        print(f"serving frontier: {len(rep['models'])} models x "
+              f"{len(rep['qps_points'])} QPS points x "
+              f"{len(rep['protocols'])} protocols on {rep['phy']}")
+    return rep

@@ -1,9 +1,10 @@
 """Axes-first design-space API — port of :mod:`repro.core.space`.
 
 * :func:`axis` / :class:`Axis` / :class:`AxisSet` — named design-space
-  axes.  The port evaluates ``phy``, ``read_fraction``, ``mix``,
-  ``backlog``, ``shoreline_mm``, ``workload_config`` and the Fig-13
-  pipelining axes ``k``, ``ucie_line_ui`` and ``device_line_ui``.
+  axes.  The port evaluates ``phy``, ``protocol``, ``read_fraction``,
+  ``mix``, ``backlog``, ``trace``, ``shoreline_mm``, ``workload_config``
+  and the Fig-13 pipelining axes ``k``, ``ucie_line_ui`` and
+  ``device_line_ui``.
 * :class:`DesignSpace` — lowers an axis combination onto the analytic
   catalog programs (:mod:`repro_torch.core.memsys`) and the flit
   simulators (:mod:`repro_torch.core.flitsim`) on one device.
@@ -11,7 +12,8 @@
   numpy arrays) with ``sel()`` / ``argbest()`` / ``frontier()`` and the
   first-class ``feasible(constraints)`` mask.
 * :func:`joint_frontier` — the joint (mix x backlog x shoreline)
-  analytic-vs-simulated frontier.
+  analytic-vs-simulated frontier; :meth:`DesignSpace.serving_frontier` —
+  the per-(model, QPS) serving-trace frontier.
 
 Winner reductions (``argbest``, ``joint_frontier``'s argmax) run in numpy
 on the host, as in the reference, so label ties resolve the same way.
@@ -40,12 +42,17 @@ class SimConfig:
     every cell's reconstructed fixed-window estimate is stable to ``tol``
     (relative), or at the horizon.  ``max_cycles`` overrides the
     per-family horizon; ``chunk`` is shrunk per family to an exact
-    divisor of the horizon."""
+    divisor of the horizon.  ``trace_cycles`` is the cycles simulated per
+    trace PHASE (``trace``-axis evaluations only, which always run the
+    trace-scan cores); ``None`` uses the family's static horizon, which
+    makes a single-phase trace bitwise equal to its static (mix, backlog)
+    cell."""
 
     mode: str = "fixed"
     chunk: int = 128
     tol: float = 1e-3
     max_cycles: Optional[int] = None
+    trace_cycles: Optional[int] = None
 
     def __post_init__(self):
         if self.mode not in ("fixed", "adaptive"):
@@ -59,12 +66,27 @@ class SimConfig:
         if self.max_cycles is not None and int(self.max_cycles) < 1:
             raise ValueError(f"SimConfig.max_cycles must be >= 1, got "
                              f"{self.max_cycles}")
+        if self.trace_cycles is not None and int(self.trace_cycles) < 8:
+            raise ValueError(f"SimConfig.trace_cycles must be >= 8, got "
+                             f"{self.trace_cycles}")
 
     def horizon(self, default: int) -> int:
         """Resolved horizon for a family whose fixed length is
         ``default``."""
         return int(self.max_cycles) if self.max_cycles is not None \
             else int(default)
+
+    def key(self) -> Tuple:
+        """What sets the numbers: configs with equal keys simulate the
+        same values (the reference keys its compile cache on it; this
+        port runs eagerly and has none).  ``trace_cycles`` appends only
+        when set, so the default keys stay the reference's."""
+        trace = () if self.trace_cycles is None \
+            else (int(self.trace_cycles),)
+        if self.mode == "fixed":
+            return ("fixed",) + trace
+        return ("adaptive", int(self.chunk), float(self.tol),
+                self.max_cycles) + trace
 
 
 #: the default config: the full fixed horizon
@@ -89,8 +111,9 @@ AXIS_ORDER: Tuple[str, ...] = (
 
 #: the axes this port evaluates (the rest wait for later slices)
 PORTED_AXES: Tuple[str, ...] = (
-    "backlog", "device_line_ui", "k", "mix", "phy", "read_fraction",
-    "shoreline_mm", "ucie_line_ui", "workload_config")
+    "backlog", "device_line_ui", "k", "mix", "phy", "protocol",
+    "read_fraction", "shoreline_mm", "trace", "ucie_line_ui",
+    "workload_config")
 
 
 def _mix_label(x: float, y: float) -> str:
@@ -141,7 +164,10 @@ def axis(name: str, values: Sequence[Any],
     ``mix`` accepts ``(x, y)`` tuples, ``TrafficMix`` objects or the
     :data:`OWN_MIX` sentinel; ``workload_config`` a mapping or
     ``(name, mix-or-report)`` pairs; ``phy``
-    :class:`repro_torch.core.ucie.UCIePhy` instances."""
+    :class:`repro_torch.core.ucie.UCIePhy` instances; ``protocol``
+    flit-simulator keys; ``trace``
+    :class:`repro_torch.traces.TrafficTrace` instances, padded to one
+    phase count."""
     vals = list(values.items()) if isinstance(values, dict) else \
         list(values)
     if not vals:
@@ -169,6 +195,21 @@ def axis(name: str, values: Sequence[Any],
     elif name == "workload_config":
         norm = [_as_workload(v) for v in vals]
         labs = [n for n, _ in norm]
+    elif name == "protocol":
+        norm = [str(v) for v in vals]
+        labs = list(norm)
+    elif name == "trace":
+        from repro_torch.traces.trace import TrafficTrace, pad_traces
+        bad = [v for v in vals if not isinstance(v, TrafficTrace)]
+        if bad:
+            raise ValueError(f"axis 'trace' values must be TrafficTrace "
+                             f"instances, got {bad}")
+        # padded to one shared phase count, so the whole axis runs as ONE
+        # [T, N] grid (one trace-kernel launch per engine family)
+        norm = list(pad_traces(vals))
+        labs = [t.name for t in norm]
+        if len(set(labs)) != len(labs):
+            raise ValueError(f"duplicate trace names on the axis: {labs}")
     elif name == "k":
         norm = [int(v) for v in vals]
         labs = list(norm)
@@ -193,7 +234,8 @@ def axis(name: str, values: Sequence[Any],
 
 class AxisSet:
     """Ordered, validated collection of axes (canonical order, unique
-    names, ``mix``/``read_fraction`` mutually exclusive)."""
+    names, ``mix``/``read_fraction`` mutually exclusive, ``trace``
+    exclusive with the static traffic axes)."""
 
     def __init__(self, *axes: Union[Axis, Sequence[Axis]]):
         flat: List[Axis] = []
@@ -208,6 +250,13 @@ class AxisSet:
         if "mix" in names and "read_fraction" in names:
             raise ValueError("axes 'mix' and 'read_fraction' are mutually "
                              "exclusive — both name the traffic-mix axis")
+        if "trace" in names:
+            clash = sorted(set(names) & {"backlog", "mix", "read_fraction",
+                                         "workload_config"})
+            if clash:
+                raise ValueError(
+                    f"axis 'trace' is exclusive with {clash}: a trace's "
+                    "phases already carry the mix and backlog trajectory")
         self._axes: Dict[str, Axis] = {
             name: next(a for a in flat if a.name == name)
             for name in sorted(names, key=AXIS_ORDER.index)}
@@ -379,6 +428,16 @@ class SpaceArray:
         return SpaceArray(dims[:ax] + dims[ax + 1:],
                           coords[:ax] + coords[ax + 1:],
                           np.asarray(labels, dtype=object))
+
+    def best(self, dim: str = "system", mode: str = "max") -> "SpaceArray":
+        """Best value along ``dim`` per remaining point."""
+        if mode not in ("max", "min"):
+            raise ValueError(f"mode must be 'max' or 'min', got {mode!r}")
+        ax = self.dims.index(dim)
+        red = (np.max if mode == "max" else np.min)(self.values, axis=ax)
+        return SpaceArray(self.dims[:ax] + self.dims[ax + 1:],
+                          self.coords[:ax] + self.coords[ax + 1:],
+                          np.asarray(red))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -563,6 +622,14 @@ APPROACH_METRICS: Tuple[str, ...] = (
     "linear_density_gbs_mm", "areal_density_gbs_mm2", "approach_pj_per_bit")
 #: Fig-13 pipelining metric (dims: k [x ucie_line_ui] [x device_line_ui])
 PIPELINE_METRICS: Tuple[str, ...] = ("utilization",)
+#: trace-scan metrics (need a ``trace`` axis): duration-weighted
+#: efficiency over the phase sequence (dims: protocol x trace) and the raw
+#: per-phase grid (... x phase) with state carried across phase boundaries
+TRACE_METRICS: Tuple[str, ...] = ("trace_efficiency",
+                                  "trace_phase_efficiency")
+#: duration-weighted trace efficiency x the PHY's raw link bandwidth ->
+#: delivered GB/s over the serving trace (needs a phy)
+TRACE_PHY_METRICS: Tuple[str, ...] = ("trace_bandwidth_gbs",)
 
 
 class DesignSpace:
@@ -657,17 +724,21 @@ class DesignSpace:
                         + list(APPROACH_METRICS))
             else:
                 out += list(ANALYTIC_METRICS) + list(SYSTEM_METRICS)
-            if "backlog" in names:
+            if "backlog" in names or "protocol" in names:
                 out += list(SIM_METRICS)
                 if "phy" in names or self.phy is not None:
                     out += list(SIM_PHY_METRICS)
+        if "trace" in names:
+            out += list(TRACE_METRICS)
+            if "phy" in names or self.phy is not None:
+                out += list(TRACE_PHY_METRICS)
         if "k" in names:
             out += list(PIPELINE_METRICS)
         if not out:
             raise ValueError(
                 f"no metric is evaluable over axes {names}; add a traffic "
-                "axis (mix/read_fraction/workload_config) or a pipelining "
-                "axis (k)")
+                "axis (mix/read_fraction/workload_config), a trace axis, "
+                "or a pipelining axis (k)")
         return tuple(out)
 
     def _tensor(self, a) -> "Any":
@@ -685,7 +756,8 @@ class DesignSpace:
         wanted = tuple(metrics) if metrics is not None else \
             self._default_metrics()
         known = (ANALYTIC_METRICS + SYSTEM_METRICS + SIM_METRICS
-                 + SIM_PHY_METRICS + APPROACH_METRICS + PIPELINE_METRICS)
+                 + SIM_PHY_METRICS + APPROACH_METRICS + PIPELINE_METRICS
+                 + TRACE_METRICS + TRACE_PHY_METRICS)
         unknown = [m for m in wanted if m not in known]
         if unknown:
             raise ValueError(f"unknown metrics {unknown}; choose from "
@@ -697,6 +769,8 @@ class DesignSpace:
             arrays.update(self._eval_approaches(wanted))
         if any(m in wanted for m in SIM_METRICS + SIM_PHY_METRICS):
             arrays.update(self._eval_sim(wanted, cfg))
+        if any(m in wanted for m in TRACE_METRICS + TRACE_PHY_METRICS):
+            arrays.update(self._eval_trace(wanted, cfg))
         if any(m in wanted for m in PIPELINE_METRICS):
             arrays.update(self._eval_pipelining(wanted, cfg))
         return SpaceResult(axes=self.axes, arrays=arrays, sim=cfg,
@@ -789,7 +863,27 @@ class DesignSpace:
 
     def _sim_protocols(self) -> Tuple[str, ...]:
         from repro_torch.core import flitsim
-        return flitsim.SIMULATED_PROTOCOLS
+        ax = self.axes.get("protocol")
+        keys = tuple(ax.values) if ax is not None else \
+            flitsim.SIMULATED_PROTOCOLS
+        unknown = [k for k in keys if k not in flitsim.SIMULATORS]
+        if unknown:
+            raise ValueError(f"unknown protocol keys {unknown}; choose "
+                             f"from {sorted(flitsim.SIMULATORS)}")
+        return keys
+
+    def _phys(self, metric: str) -> List[Any]:
+        """The PHYs a PHY-absolute metric threads: the ``phy`` axis's, or
+        ``DesignSpace(phy=...)``."""
+        phy_ax = self.axes.get("phy")
+        if phy_ax is not None:
+            return list(phy_ax.values)
+        if self.phy is not None:
+            return [self.phy]
+        raise ValueError(
+            f"the {metric!r} metric threads the PHY's raw link bandwidth "
+            "into the simulated efficiency — add a 'phy' axis or pass "
+            "DesignSpace(phy=...)")
 
     def _eval_sim(self, wanted, sim: SimConfig) -> Dict[str, SpaceArray]:
         from repro_torch.core import flitsim
@@ -825,15 +919,7 @@ class DesignSpace:
                 tuple(dims), tuple(coords), np.asarray(eff))
         if "sim_bandwidth_gbs" in wanted:
             phy_ax = self.axes.get("phy")
-            if phy_ax is not None:
-                phys = list(phy_ax.values)
-            elif self.phy is not None:
-                phys = [self.phy]
-            else:
-                raise ValueError(
-                    "the 'sim_bandwidth_gbs' metric threads the PHY's raw "
-                    "link bandwidth into the simulated efficiency — add a "
-                    "'phy' axis or pass DesignSpace(phy=...)")
+            phys = self._phys("sim_bandwidth_gbs")
             raw = np.asarray([p.raw_bandwidth_gbs for p in phys],
                              np.float32)
             v = (np.expand_dims(eff, 1)
@@ -856,6 +942,53 @@ class DesignSpace:
             out["analytic_efficiency"] = SpaceArray(
                 ("protocol",) + mix_dims,
                 (keys,) + tuple(self.axes[d].labels for d in mix_dims), an)
+        return out
+
+    def _eval_trace(self, wanted, sim: SimConfig) -> Dict[str, SpaceArray]:
+        from repro_torch.core import flitsim
+        tr_ax = self.axes.get("trace")
+        if tr_ax is None:
+            raise ValueError("trace metrics ('trace_efficiency', ...) "
+                             "need a 'trace' axis")
+        keys = self._sim_protocols()
+        traces = tr_ax.values           # axis() padded them to a common N
+        xs = np.asarray([[100.0 * r for r in t.read_fractions]
+                         for t in traces], np.float32)
+        ys = 100.0 - xs
+        bls = np.asarray([t.backlogs for t in traces], np.float32)
+        eff = flitsim.simulate_trace_grid(
+            keys, xs, ys, bls, n_flits=self.n_flits,
+            n_accesses=self.n_accesses, sim=sim,
+            device=self.device)[0].cpu().numpy()        # [P, T, N]
+        # the duration-weighted aggregate is computed host-side in f64
+        # with per-trace normalized weights, so a single-phase trace
+        # (w == d/d == 1.0 exactly) stays bitwise equal to its static cell
+        # through the f32 round trip
+        d = np.asarray([t.durations for t in traces], np.float64)
+        w = d / d.sum(axis=1, keepdims=True)                    # [T, N]
+        agg = np.einsum("ptn,tn->pt", eff.astype(np.float64),
+                        w).astype(np.float32)
+        dims = ("protocol", "trace")
+        coords = (keys, tr_ax.labels)
+        out: Dict[str, SpaceArray] = {}
+        if "trace_efficiency" in wanted:
+            out["trace_efficiency"] = SpaceArray(dims, coords, agg)
+        if "trace_phase_efficiency" in wanted:
+            out["trace_phase_efficiency"] = SpaceArray(
+                dims + ("phase",), coords + (tuple(range(eff.shape[-1])),),
+                eff)
+        if "trace_bandwidth_gbs" in wanted:
+            phys = self._phys("trace_bandwidth_gbs")
+            raw = np.asarray([p.raw_bandwidth_gbs for p in phys],
+                             np.float32)
+            v = agg[:, None, :] * raw[None, :, None]          # [P, F, T]
+            if "phy" in self.axes:
+                out["trace_bandwidth_gbs"] = SpaceArray(
+                    ("protocol", "phy", "trace"),
+                    (keys, tuple(p.name for p in phys), tr_ax.labels), v)
+            else:                       # DesignSpace(phy=...): no phy dim
+                out["trace_bandwidth_gbs"] = SpaceArray(dims, coords,
+                                                        v[:, 0])
         return out
 
     def _eval_pipelining(self, wanted, sim: SimConfig
@@ -894,6 +1027,22 @@ class DesignSpace:
         :func:`repro_torch.core.report.build_report`."""
         from repro_torch.core.report import build_report
         return build_report(spec, space=self, device=self.device)
+
+    @staticmethod
+    def serving_frontier(models=None, qps_points=None,
+                         **kwargs) -> Dict[str, Any]:
+        """Per-(model, QPS) serving frontier: synthetic serving traces
+        evaluated through the ``trace`` axis, winners mapped to catalog
+        memory approaches.  Delegates to
+        :func:`repro_torch.traces.frontier.serving_frontier` (see there
+        for the knobs, ``device=`` among them)."""
+        from repro_torch.traces.frontier import (
+            DEFAULT_MODELS, DEFAULT_QPS, serving_frontier,
+        )
+        return serving_frontier(
+            models if models is not None else DEFAULT_MODELS,
+            qps_points if qps_points is not None else DEFAULT_QPS,
+            **kwargs)
 
 
 # =========================================================================

@@ -1,8 +1,9 @@
-"""Memory-system explorer — port of the ``--bridge`` and ``--sweep`` modes
-of ``examples/memsys_explorer.py``.
+"""Memory-system explorer — port of the ``--bridge``, ``--sweep`` and
+``--serving`` modes of ``examples/memsys_explorer.py``.
 
     python -m repro_torch.explorer --bridge [--out DIR] [--device cpu]
     python -m repro_torch.explorer --sweep [--device cpu]
+    python -m repro_torch.explorer --serving [--device cpu]
 
 Sweep mode flit-simulates every protocol over a dense read-fraction x
 backlog grid with the adaptive engine (the ``symmetric_run`` and
@@ -14,11 +15,14 @@ Bridge mode stacks every workload's traffic mix (the representative train / pref
 decode workloads below) as a ``workload_config`` axis on top of the dense
 mix grid and a shoreline axis, resolves the whole [configs x catalog x
 mixes x shorelines] space, then builds the joint analytic-vs-simulated
-frontier, the PHY-stacked frontier and its cycle-level counterpart, and
-writes the report to ``DIR/design_space.json`` (default
-``experiments/torch_dryrun/``).  The flit-simulated sections run the
-adaptive engine on the CUDA kernels.  The serving section waits for the
-traces slice.
+frontier, the PHY-stacked frontier, its cycle-level counterpart and the
+serving-trace frontier, and writes the report to ``DIR/design_space.json``
+(default ``experiments/torch_dryrun/``).  The flit-simulated sections run
+the adaptive engine on the CUDA kernels, the serving section the trace
+kernels (``symmetric_trace``, ``asymmetric_trace``: one launch each).
+
+Serving mode prints the serving-trace frontier alone: which memory
+approach wins at which (model, QPS) point.
 """
 from __future__ import annotations
 
@@ -97,7 +101,8 @@ def sweep_mode(n_fracs: int = 41,
     eff = np.asarray(sa.values)                   # [P, B, M]
     t_sim = time.perf_counter() - t0
     launches = {k: v - before[k] for k, v in fs_ops.launches.items()}
-    run_info = flitsim.last_run_info()
+    run_info = {fam: info for fam, info in flitsim.last_run_info().items()
+                if info["mode"] == "adaptive"}
     say(f"flit-simulated {eff.size} grid points "
         f"({len(protocols)} protocols x {len(backlogs)} backlogs x "
         f"{n_fracs} read fractions) in {t_sim:.2f}s on {dev} "
@@ -154,6 +159,65 @@ def representative_reports() -> Dict[str, Any]:
             dominant="memory", model_flops=0.0, useful_flops_ratio=0.0,
             read_bytes_per_chip=r, write_bytes_per_chip=w)
         for name, (r, w, hb) in REPRESENTATIVE_WORKLOADS.items()}
+
+
+def serving_frontier_report(models=None, qps_points=None, *, device=None,
+                            verbose: bool = True, **kwargs
+                            ) -> Dict[str, Any]:
+    """Serving-trace frontier on ``device`` (default ``"cuda"``): which
+    memory approach wins at which (model, QPS) point.  Synthetic serving
+    traces (config shapes only, no weights) are evaluated through the
+    design space's ``trace`` axis — queue/credit state carried across
+    phase boundaries — and each (model, QPS) cell's winning protocol on
+    the UCIe-A PHY is mapped to its catalog memory approach.  Prints the
+    frontier and the trace-scan telemetry (unless not ``verbose``);
+    returns the ``serving_frontier`` section of ``design_space.json``
+    (through the report API, section ``"serving"``)."""
+    from repro_torch.core.report import ReportSpec, build_report
+    dev = device_mod.resolve(device)
+    say = print if verbose else (lambda *a, **k: None)
+    t0 = time.perf_counter()
+    opts = dict(kwargs, models=models, qps_points=qps_points)
+    spec = ReportSpec(sections=("serving",), options={"serving": opts})
+    rep = build_report(spec, device=dev)["serving"].payload
+    dt = time.perf_counter() - t0
+    say(f"serving frontier: {len(rep['models'])} models x "
+        f"{len(rep['qps_points'])} QPS points x "
+        f"{len(rep['protocols'])} protocols ({rep['n_phases']} phases "
+        f"per trace, {rep['arrival']} arrivals) in {dt:.2f}s on {dev} "
+        f"[kernel launches {rep['launches']}, {rep['phy']}]")
+    for fam, tele in sorted(rep["telemetry"].items()):
+        say(f"    {fam.split('.')[1]:10s} trace-scan: "
+            f"{tele['phases']} phases x {tele['cycles_per_phase']} "
+            f"cycles ({tele['trace_cells']} cells, state carried "
+            f"across {tele['state_carry_depth']} cycles)")
+    for m in rep["models"]:
+        wins = rep["winner_by_model_qps"][m]
+        gbs = rep["winner_gbs_by_model_qps"][m]
+        pts = "  ".join(
+            f"qps={q}: {wins[q]} ({gbs[q]:.0f} GB/s)" for q in wins)
+        tag = "QPS-SENSITIVE" if rep["qps_sensitive"][m] else \
+            "qps-insensitive"
+        say(f"    {m:14s} {pts}  [{tag}]")
+    if rep["models"] and rep["qps_points"] and \
+            not any(rep["qps_sensitive"].values()):
+        say("    (one approach serves every load point on this PHY)")
+    return rep
+
+
+def serving_mode(*, device=None) -> Dict[str, Any]:
+    """``--serving``: print the serving-trace frontier alone, then every
+    synthetic trace's phases."""
+    rep = serving_frontier_report(device=device)
+    traces = rep["traces"]
+    print(f"\n{len(traces)} synthetic traces "
+          f"({rep['n_ticks']} engine ticks each):")
+    for name in rep["trace_names"]:
+        t = traces[name]
+        rf = "/".join(f"{r:.2f}" for r in t["read_fractions"])
+        bl = "/".join(f"{b:.0f}" for b in t["backlogs"])
+        print(f"    {name:22s} read fraction {rf}  backlog {bl}")
+    return rep
 
 
 def bridge_mode(out_dir: Optional[os.PathLike] = None, *,
@@ -215,6 +279,11 @@ def bridge_mode(out_dir: Optional[os.PathLike] = None, *,
     ds["joint_frontier"] = jf
     ds["phy_frontier"] = sections["phy"].payload
     ds["sim_phy_frontier"] = sections["sim_phy"].payload
+    # ...and the serving-trace frontier: time-varying traffic from the LM
+    # serving workloads, winners per (model, QPS) point
+    say()
+    ds["serving_frontier"] = serving_frontier_report(device=dev,
+                                                     verbose=verbose)
     if out_dir is not None or verbose:
         out = Path(out_dir) if out_dir is not None else DEFAULT_OUT
         out.mkdir(parents=True, exist_ok=True)
@@ -231,6 +300,8 @@ def main(argv=None) -> None:
                       help="workload -> design-space bridge")
     mode.add_argument("--sweep", action="store_true",
                       help="dense read-fraction x backlog sweep")
+    mode.add_argument("--serving", action="store_true",
+                      help="serving-trace frontier per (model, QPS)")
     ap.add_argument("--out", default=None,
                     help=f"bridge output directory (default {DEFAULT_OUT})")
     ap.add_argument("--device", default=None,
@@ -238,6 +309,8 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.sweep:
         sweep_mode(device=args.device)
+    elif args.serving:
+        serving_mode(device=args.device)
     else:
         bridge_mode(args.out, device=args.device)
 

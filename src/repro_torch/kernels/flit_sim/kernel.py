@@ -1,9 +1,9 @@
 """ctypes bindings of the fused flit-simulator CUDA kernels
 (``repro_torch/csrc/flit_sim.cu``).
 
-A one-chunk or periodic launch advances every cell of a row-stacked
-``[rows, cells]`` operand with one thread per cell; the ragged edge is
-masked in the kernel, so no padding is needed.  A run launch is one
+A one-chunk, periodic or trace launch advances every cell of a
+row-stacked ``[rows, cells]`` operand with one thread per cell; the
+ragged edge is masked in the kernel, so no padding is needed.  A run launch is one
 cooperative grid that takes every cell through a whole adaptive run,
 chunk after chunk, one cell a thread, and stops on the card.  Each
 launcher takes contiguous f32 CUDA tensors (validated by
@@ -44,10 +44,15 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                        ctypes.c_int, ctypes.c_float, ctypes.c_int, _P]
     lib.flit_division_check.argtypes = [_P, ctypes.c_int, ctypes.c_int, _P,
                                         _P]
+    lib.flit_symmetric_trace.argtypes = [_P, _P, _P, _P, _P, ctypes.c_long,
+                                         ctypes.c_int, ctypes.c_int, _P]
+    lib.flit_asymmetric_trace.argtypes = [_P, _P, _P, _P, ctypes.c_long,
+                                          ctypes.c_int, ctypes.c_int, _P]
     for fn in (lib.flit_symmetric_chunk, lib.flit_asymmetric_periodic,
                lib.flit_symmetric_periodic, lib.flit_pipelining_chunk,
                lib.flit_symmetric_run, lib.flit_pipelining_run,
-               lib.flit_division_check):
+               lib.flit_division_check, lib.flit_symmetric_trace,
+               lib.flit_asymmetric_trace):
         fn.restype = ctypes.c_int
     return lib
 
@@ -155,6 +160,30 @@ def pipelining_run(params, *, K: int, chunk: int, tol: float,
         float(tol), int(n_lines), _stream(params))
     _raise_on(err, "pipelining_run")
     return out, conv_at, track[:1]
+
+
+def symmetric_trace(params, xs, ys, bls, *, cycles: int):
+    """Launch the symmetric trace scan: ``[N, C]`` from ``params``
+    ``[SYM_ROWS, C]`` and the phase rows ``xs`` / ``ys`` / ``bls``
+    ``[N, C]``."""
+    out = _out(xs.shape[0], params)
+    err = _lib().flit_symmetric_trace(
+        params.data_ptr(), xs.data_ptr(), ys.data_ptr(), bls.data_ptr(),
+        out.data_ptr(), params.shape[1], xs.shape[0], int(cycles),
+        _stream(params))
+    _raise_on(err, "symmetric_trace")
+    return out
+
+
+def asymmetric_trace(params, xs, ys, *, cycles: int):
+    """Launch the asymmetric trace scan: ``[N, C]`` from ``params``
+    ``[ASYM_ROWS, C]`` and the phase rows ``xs`` / ``ys`` ``[N, C]``."""
+    out = _out(xs.shape[0], params)
+    err = _lib().flit_asymmetric_trace(
+        params.data_ptr(), xs.data_ptr(), ys.data_ptr(), out.data_ptr(),
+        params.shape[1], xs.shape[0], int(cycles), _stream(params))
+    _raise_on(err, "asymmetric_trace")
+    return out
 
 
 def division_check(d_bits: torch.Tensor, *, varying: bool) -> int:

@@ -19,11 +19,15 @@ from repro_torch.kernels.flit_sim.ref import (
     ASYM_ROWS, PIPE_ROWS, SCAL_COLS, SYM_ROWS,
 )
 
+#: the trace-scan kernels (port kernels with no TPU counterpart)
+TRACE_KERNELS = ("symmetric_trace", "asymmetric_trace")
+
 #: CUDA launches per kernel since the last :func:`reset_launches`
 launches: Dict[str, int] = {"symmetric_chunk": 0, "symmetric_run": 0,
                             "asymmetric_periodic": 0,
                             "symmetric_periodic": 0, "pipelining_chunk": 0,
-                            "pipelining_run": 0}
+                            "pipelining_run": 0,
+                            **{name: 0 for name in TRACE_KERNELS}}
 
 
 def reset_launches() -> None:
@@ -147,4 +151,42 @@ def pipelining_run(params, *, K: int, chunk: int, tol: float, n_lines: int):
     out = _k.pipelining_run(params, K=K, chunk=chunk, tol=tol,
                             n_lines=n_lines)
     launches["pipelining_run"] += 1
+    return out
+
+
+def _check_trace(name: str, params, rows: int, cycles: int,
+                 *phases) -> None:
+    cells = params.shape[1]
+    _check_rows(name, params, rows, cells)
+    for t in phases:
+        _check_rows(name, t, phases[0].shape[0], cells)
+    if phases[0].shape[0] < 1 or not 1 <= cycles <= 1 << 24:
+        raise ValueError(f"{name}: need >= 1 phase and 1 <= cycles <= "
+                         f"2^24, got {phases[0].shape[0]} phases, cycles "
+                         f"{cycles}")
+
+
+def symmetric_trace(params, xs, ys, bls, *, cycles: int):
+    """Every cell's trace, phase after phase, the queue/credit core carried
+    across phase boundaries: ``[N, C]`` per-phase efficiency from
+    ``params`` ``[SYM_ROWS, C]`` and the phase rows ``xs`` / ``ys`` /
+    ``bls`` ``[N, C]``."""
+    if not _on_cuda("symmetric_trace", params, xs, ys, bls):
+        return _ref.symmetric_trace_compute(params, xs, ys, bls,
+                                            cycles=cycles)
+    _check_trace("symmetric_trace", params, SYM_ROWS, cycles, xs, ys, bls)
+    out = _k.symmetric_trace(params, xs, ys, bls, cycles=cycles)
+    launches["symmetric_trace"] += 1
+    return out
+
+
+def asymmetric_trace(params, xs, ys, *, cycles: int):
+    """The asymmetric trace scan: ``[N, C]`` per-phase efficiency from
+    ``params`` ``[ASYM_ROWS, C]`` and the phase rows ``xs`` / ``ys``
+    ``[N, C]``."""
+    if not _on_cuda("asymmetric_trace", params, xs, ys):
+        return _ref.asymmetric_trace_compute(params, xs, ys, cycles=cycles)
+    _check_trace("asymmetric_trace", params, ASYM_ROWS, cycles, xs, ys)
+    out = _k.asymmetric_trace(params, xs, ys, cycles=cycles)
+    launches["asymmetric_trace"] += 1
     return out

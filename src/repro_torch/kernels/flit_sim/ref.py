@@ -67,6 +67,14 @@ A whole adaptive run (``symmetric_run_compute``,
 ``pipelining_run_compute``) takes only ``params`` and returns the state
 rows after its exit chunk, each cell's first converged chunk ``conv_at``
 ([C] int32, -1 for none) and the exit chunk ``k_exit`` ([1] int32).
+
+trace scans (``symmetric_trace_compute``, ``asymmetric_trace_compute``;
+port kernels with no TPU counterpart: the reference runs them as XLA
+scans): ``params`` [SYM_ROWS, C] (rows 0..10 the SymmetricFlitParams
+fields, pad rows zero) or [ASYM_ROWS, C] (rows 0..5 the
+AsymmetricLaneParams fields), the per-phase rows ``xs``, ``ys`` and
+(symmetric) ``bls`` [N, C], one row per phase; output [N, C], one
+efficiency row per phase.
 """
 from __future__ import annotations
 
@@ -75,7 +83,8 @@ import torch
 
 from repro_torch.core.flitsim import (
     _DRIFT_TOL_SLOTS, _MIN_EXIT_CHUNKS, AsymmetricLaneParams,
-    SymmetricFlitParams, _asymmetric_stepfn, _scal_row, _symmetric_stepfn,
+    SymmetricFlitParams, _asymmetric_stepfn, _asymmetric_trace_grid,
+    _scal_row, _symmetric_stepfn, _symmetric_trace_grid,
 )
 
 #: rows per stacked operand
@@ -415,3 +424,22 @@ def pipelining_run_compute(params, *, K: int, chunk: int, tol: float,
             break
     return (state, torch.as_tensor(conv_at, device=dev),
             torch.tensor([k], dtype=torch.int32, device=dev))
+
+
+def symmetric_trace_compute(params, xs, ys, bls, *, cycles: int):
+    """Every cell through all N phases of its trace, ``cycles`` steps a
+    phase, the queue/credit core carried across phase boundaries (the
+    plain trace-scan core of :mod:`repro_torch.core.flitsim` on
+    row-stacked cells): ``[N, C]`` per-phase efficiency."""
+    p = SymmetricFlitParams(*[params[i] for i in range(11)])
+    return _symmetric_trace_grid(p, xs.unbind(0), ys.unbind(0),
+                                 bls.unbind(0), cycles=cycles)
+
+
+def asymmetric_trace_compute(params, xs, ys, *, cycles: int):
+    """The asymmetric trace scan on row-stacked cells: lane clocks and
+    credit carried across phases, each phase's efficiency from its
+    lane-time delta: ``[N, C]``."""
+    p = AsymmetricLaneParams(*[params[i] for i in range(6)])
+    return _asymmetric_trace_grid(p, xs.unbind(0), ys.unbind(0),
+                                  cycles=cycles)

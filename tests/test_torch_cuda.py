@@ -6,6 +6,9 @@ plain version (the f32 CUDA-core kernel: atol 3e-5, rtol 1e-4; the bf16
 tensor-core kernel: one output ulp, atol 4e-3, rtol 2^-7, at head dims 16
 to 256, ragged Sq and Skv, Sq = 1, windows, offsets, MQA and GQA, one and
 two warpgroups a block, and the element-load path for hd % 8 != 0),
+the trace-scan kernels bitwise to their plain versions (at the serving
+frontier's shape, one phase against the fixed engine, ragged phase
+counts, cells that take the IEEE rerun and 1026 cells),
 the RG-LRU scan bitwise and the SSD scan within the reference's
 tolerance (atol 5e-5, rtol 1e-4; at the edges of its chunk at full width,
 1e-4 of the largest value), the launch counters, the bridge, the
@@ -382,12 +385,97 @@ def test_bridge_on_card_meets_golden(dev):
     # one launch per adaptive symmetric run, no one-chunk launch
     assert len(runs) == 2 and ops.launches["symmetric_run"] == len(runs)
     assert ops.launches["symmetric_chunk"] == 0
+    # the serving section: one launch of each trace kernel
+    assert ops.launches["symmetric_trace"] == 1
+    assert ops.launches["asymmetric_trace"] == 1
+    assert ds["serving_frontier"]["launches"] == {"symmetric_trace": 1,
+                                                  "asymmetric_trace": 1}
     golden = json.loads(
         (ROOT / "experiments/golden/design_space_summary.json").read_text())
-    got = summarize(ds)
-    for key in golden:
-        if key != "serving_frontier":
-            assert got[key] == golden[key], key
+    assert summarize(ds) == golden
+
+
+def _trace_grids(dev, case):
+    """``(xs, ys, bls [T, N] on dev, symmetric cycles, asymmetric
+    cycles)`` of a trace-kernel case."""
+    from repro_torch.traces import (DEFAULT_MODELS, DEFAULT_QPS,
+                                    ModelTrafficSpec, TrafficTrace,
+                                    pad_traces, synthetic_serving_trace)
+    rng = np.random.default_rng(20)
+    if case == "frontier":
+        traces = [synthetic_serving_trace(ModelTrafficSpec.from_name(m),
+                                          qps=q, name=f"{m}@q{q:g}")
+                  for m in DEFAULT_MODELS for q in DEFAULT_QPS]
+        cycles = (2048, 4096)
+    elif case == "ragged":
+        traces = pad_traces([TrafficTrace(
+            f"t{i}", (1.0,) * k, tuple(rng.uniform(0, 1, k)),
+            tuple(rng.uniform(1, 128, k)))
+            for i, k in enumerate((1, 5, 2, 3, 4, 1, 5))])
+        cycles = (256, 256)
+    else:
+        T, N = {"one phase": (33, 1), "out of range": (24, 3),
+                "1026 cells": (342, 4)}[case]
+        traces = [TrafficTrace(f"t{i}", (1.0,) * N,
+                               tuple(rng.uniform(0, 1, N)),
+                               tuple(rng.uniform(1, 128, N)))
+                  for i in range(T)]
+        cycles = (512, 512) if case == "one phase" else (256, 256)
+    xs = torch.tensor([[100.0 * r for r in t.read_fractions]
+                       for t in traces], device=dev)
+    bls = torch.tensor([list(t.backlogs) for t in traces], device=dev)
+    return (xs, 100.0 - xs, bls) + cycles
+
+
+@pytest.mark.parametrize("case", ["frontier", "one phase", "ragged",
+                                  "out of range", "1026 cells"])
+def test_trace_kernels_equal_plain(dev, case):
+    """Each trace kernel against its plain version, bit for bit, one launch
+    each; a one-phase trace also against the fixed engine's static cell;
+    planted cells (``_out_of_range_sym``) run their trace again with the
+    IEEE division."""
+    xs, ys, bls, c_sym, c_asym = _trace_grids(dev, case)
+    ps = flitsim.SymmetricFlitParams.stack(
+        list(flitsim.SYMMETRIC_PARAMS.values()), dev)
+    pa = flitsim.AsymmetricLaneParams.stack(
+        list(flitsim.ASYMMETRIC_PARAMS.values()), dev)
+    rows = flitsim._trace_rows(ps, ref.SYM_ROWS, xs, ys, bls)
+    if case == "out of range":
+        rows = (_out_of_range_sym(rows[0]),) + rows[1:]
+    arows = flitsim._trace_rows(pa, ref.ASYM_ROWS, xs, ys)
+    ops.reset_launches()
+    got = ops.symmetric_trace(*rows, cycles=c_sym)
+    agot = ops.asymmetric_trace(*arows, cycles=c_asym)
+    assert ops.launches["symmetric_trace"] == 1
+    assert ops.launches["asymmetric_trace"] == 1
+    assert _same_bits(got, ref.symmetric_trace_compute(*rows, cycles=c_sym))
+    assert _same_bits(agot, ref.asymmetric_trace_compute(*arows,
+                                                         cycles=c_asym))
+    assert got.shape == (xs.shape[1], 3 * xs.shape[0])
+    if case == "one phase":
+        fixed = flitsim._symmetric_grid(ps, xs[:, 0], ys[:, 0], bls[:, 0],
+                                        n_flits=c_sym)   # [P, T, T]
+        diag = torch.diagonal(fixed, dim1=1, dim2=2).reshape(-1)
+        assert torch.equal(got[0], diag)
+        fixed = flitsim._asymmetric_grid(pa, xs[:, 0], ys[:, 0],
+                                         n_accesses=c_asym)
+        assert torch.equal(agot[0], fixed.reshape(-1))
+
+
+def test_trace_wrappers_reject_bad_operands(dev):
+    xs, ys, bls, _, _ = _trace_grids(dev, "one phase")
+    ps = flitsim.SymmetricFlitParams.stack(
+        list(flitsim.SYMMETRIC_PARAMS.values()), dev)
+    params, rx, ry, rb = flitsim._trace_rows(ps, ref.SYM_ROWS, xs, ys, bls)
+    with pytest.raises(ValueError, match="expected shape"):
+        ops.symmetric_trace(params[:8].contiguous(), rx, ry, rb, cycles=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.symmetric_trace(params, rx, torch.stack([ry, ry], -1)[..., 0],
+                            rb, cycles=8)
+    with pytest.raises(ValueError, match="cycles"):
+        ops.symmetric_trace(params, rx, ry, rb, cycles=0)
+    with pytest.raises(ValueError, match="several devices"):
+        ops.symmetric_trace(params.cpu(), rx, ry, rb, cycles=8)
 
 
 def test_pipelining_chunk_equal_plain_over_a_run(dev):

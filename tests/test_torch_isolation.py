@@ -47,7 +47,8 @@ def test_port_has_modules():
                  "launch/serve.py", "launch/profile_serve.py",
                  "configs/mamba2_2_7b.py", "models/ssm.py",
                  "kernels/ssd_scan/ref.py", "kernels/ssd_scan/kernel.py",
-                 "kernels/ssd_scan/ops.py"):
+                 "kernels/ssd_scan/ops.py", "traces/trace.py",
+                 "traces/frontier.py", "traces/recorder.py"):
         assert want in names
 
 
@@ -98,6 +99,10 @@ def _entry_points():
             explorer.representative_reports()),
         "bridge_mode": lambda: explorer.bridge_mode(verbose=False),
         "explorer_cli": lambda: explorer.main(["--bridge"]),
+        "explorer_cli_serving": lambda: explorer.main(["--serving"]),
+        "serving_frontier": lambda: space.DesignSpace.serving_frontier(),
+        "simulate_trace_grid": lambda: flitsim.simulate_trace_grid(
+            ["chi"], [[1.0]], [[1.0]], [[4.0]]),
         "mix_grid": lambda: traffic.mix_grid(5),
         "rank": lambda: selector.rank(traffic.TrafficMix(2, 1)),
         "best": lambda: selector.best(traffic.TrafficMix(2, 1)),
@@ -127,6 +132,7 @@ def _entry_points():
 @pytest.mark.parametrize("name", sorted([
     "simulate_grid", "sweep", "DesignSpace", "joint_frontier",
     "build_report", "bridge_design_space", "bridge_mode", "explorer_cli",
+    "explorer_cli_serving", "serving_frontier", "simulate_trace_grid",
     "mix_grid", "rank", "best", "sweep_mode", "explorer_cli_sweep",
     "quickstart", "quickstart_cli", "simulate_lpddr6_pipelining",
     "sweep_pipelining", "simulators", "pack", "model_params",

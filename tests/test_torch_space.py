@@ -2,7 +2,7 @@
 on the CPU: named-axis arrays (closed forms rel 1e-6), the joint frontier
 at ``n_fracs=5`` (labels equal, ``protocol_rel_err`` atol 1e-6), and the
 full-width ``--bridge`` run, whose summary must equal the checked-in
-golden on every section but the serving one."""
+golden on every section."""
 import json
 import pathlib
 import sys
@@ -103,6 +103,8 @@ def test_axis_validation():
         t_space.AxisSet(t_space.axis("mix", [(1, 1)]),
                         t_space.axis("read_fraction", [0.5]))
     with pytest.raises(NotImplementedError, match="not ported"):
+        t_space.axis("protocol_param", [{}])
+    with pytest.raises(ValueError, match="TrafficTrace"):
         t_space.axis("trace", [1, 2])
     with pytest.raises(ValueError, match="OWN_MIX"):
         t_space.DesignSpace([t_space.axis("mix", [t_space.OWN_MIX])],
@@ -152,19 +154,16 @@ def test_frontier_report_section():
 
 
 def test_bridge_full_width_matches_golden(tmp_path):
-    """The slice as a whole: the port's explorer ``--bridge`` at full
-    width on the CPU; its summary equals the golden on every section but
-    ``serving_frontier`` (the traces slice)."""
+    """The design-space main path as a whole: the port's explorer
+    ``--bridge`` at full width on the CPU; its summary equals the golden
+    in every section, ``serving_frontier`` included."""
     from repro_torch import explorer
     ds = explorer.bridge_mode(tmp_path, device=CPU, verbose=False)
     on_disk = json.loads((tmp_path / "design_space.json").read_text())
     golden = json.loads(
         (ROOT / "experiments/golden/design_space_summary.json").read_text())
     got = summarize(on_disk)
-    assert set(golden) - set(got) == {"serving_frontier"}
-    for key in golden:
-        if key != "serving_frontier":
-            assert got[key] == golden[key], key
+    assert got == golden
     assert summarize(ds) == got
     cycles = ds["sim_phy_frontier"]["adaptive_cycles"]
     assert cycles["asymmetric"] == 128
