@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --periodic-ab OLD/flit_sim.cu [OTHER.cu ...]
     python3 chip_smoke.py --traces
+    python3 chip_smoke.py --streaming
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``).  Phases, each fatal
 on failure:
@@ -29,7 +30,9 @@ on failure:
    counterpart) at the serving frontier's shape (9 traces x 6 phases,
    2048 and 4096 cycles a phase), at one phase (189 and 126 cells, also
    against the fixed engine's static cells), at ragged phase counts from
-   ``pad_traces`` and at ~2^20 cells of 6 phases, bitwise, each timed one
+   ``pad_traces``, at ~2^20 cells of 6 phases and at a streamed chunk's
+   shape (4096 cells x 3 and 2 protocols, one phase of 64 cycles: the
+   per-cell fixed-horizon runner), bitwise, each timed one
    call, back to back and on the card beside its bound and a logged
    chain-latency estimate, the plain version timed once at each shape;
 4. main path, each path driven with the launch counts set to 0 just
@@ -57,6 +60,20 @@ on failure:
    e. the quickstart's values on the card against the CPU;
    f. the Fig 8/9 flit data path: 2^16 lines packed (``pack_flits``) and
       unpacked, every line, header and checksum back;
+   f'. streamed evaluation: the reference's ``joint_1e7`` space (2500
+      ``g_slots`` scales x 4 PHYs x 25 backlogs x 41 read fractions,
+      64-cycle horizons: 2,562,500 stream cells, 10,250,000 joint cells)
+      streamed as ``sim_bandwidth_gbs`` in 4096-cell chunks at prefetch 2
+      and 1: 16384 joint cells a chunk, one ``symmetric_trace`` and one
+      ``asymmetric_trace`` launch a dispatch and no call of the eager
+      per-cycle cores; winners, win counts and bests bitwise equal to the
+      card's materialized fixed engine; wall, dispatches, overlap and
+      peak memory (streamed and materialized) logged; then a
+      ``catalog_param x phy x read_fraction x shoreline_mm`` evaluation
+      and a ``protocol_param`` space under ADAPTIVE_SIM against the CPU
+      (labels equal, numbers within 1e-6), ``sweep_perturbed`` under
+      ADAPTIVE_SIM against FIXED_SIM (1e-3) and a constrained analytic
+      stream against the materialized frontier;
    g. LM serving (``flash_attention_fwd``, ``rglru_scan``): the launcher
       refusing recurrentgemma-2b at its default ``--max-len 128`` (below
       the window: R4), the launcher
@@ -117,6 +134,8 @@ phase 3, for other ``flit_sim.cu`` files (a parent commit's, unpacked with
 ``git archive``) and this tree's in turns in one process, and prints one
 ``{"periodic_ab": [...]}`` line last.  ``--traces`` runs only phases 1-2
 and the trace kernels of phase 3, and prints one ``{"traces": {...}}``
+line last.  ``--streaming`` runs only phases 1-2 and the streamed and
+perturbation phases of 4 (f'), and prints one ``{"streaming": {...}}``
 line last.
 """
 import argparse
@@ -140,7 +159,13 @@ import torch  # noqa: E402
 from repro_torch import _build, explorer, quickstart  # noqa: E402
 from repro_torch.configs import get as get_config  # noqa: E402
 from repro_torch.core import flitsim  # noqa: E402
-from repro_torch.core.space import ADAPTIVE_SIM, DesignSpace, axis  # noqa: E402
+from repro_torch.core.selector import SelectionConstraints  # noqa: E402
+from repro_torch.core.space import (  # noqa: E402
+    ADAPTIVE_SIM, DesignSpace, StreamConfig, axis,
+)
+from repro_torch.core.ucie import (  # noqa: E402
+    UCIE_A_32G_55U, UCIE_A_48G_45U, UCIE_S_32G, UCIE_S_48G_110U,
+)
 from repro_torch.explorer import bridge_mode, sweep_mode  # noqa: E402
 from repro_torch.kernels.flit_pack import ops as pack_ops  # noqa: E402
 from repro_torch.kernels.flit_pack import ref as pack_ref  # noqa: E402
@@ -249,6 +274,13 @@ FIG13_US = (8.0, 16.0)
 FIG13_DS = (16.0, 32.0, 64.0)
 #: lines of the flit data path on the main path
 PACK_MAIN_LINES = 1 << 16
+#: the reference's streaming benchmark space ``joint_1e7``
+#: (benchmarks/bench_streaming.py): 2500 g_slots scales x 4 PHYs x 25
+#: backlogs x 41 read fractions, 64-cycle horizons, 4096 cells a chunk
+JOINT_PERTS, JOINT_BACKLOGS, JOINT_MIXES = 2500, 25, 41
+JOINT_CYCLES = 64
+JOINT_CHUNK = 4096
+JOINT_PHYS = (UCIE_S_32G, UCIE_A_32G_55U, UCIE_S_48G_110U, UCIE_A_48G_45U)
 
 
 T0 = time.perf_counter()
@@ -315,7 +347,7 @@ def hold(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
             if got.shape == want.shape else float("nan")
         raise AssertionError(f"{name}: kernel differs from its plain "
                              f"version (max |diff| {diff})")
-    return float((got - want).abs().max().item())
+    return 0.0      # equal everywhere (an inf - inf would read NaN)
 
 
 def close(name: str, got, want, atol: float) -> float:
@@ -751,7 +783,8 @@ def trace_cases():
     phases (the main path's shape), one phase at the bridge's 21 read
     fractions x backlogs 2, 8, 64 (189 and 126 cells), ragged phase counts
     padded by ``pad_traces`` (512 cycles a phase), ~2^20 cells of 6
-    phases."""
+    phases, and a streamed chunk of ``joint_1e7`` (4096 cells x 3 and 2
+    protocols, one phase of 64 cycles)."""
     frontier = [synthetic_serving_trace(ModelTrafficSpec.from_name(m),
                                         qps=q, name=f"{m}@q{q:g}")
                 for m in DEFAULT_MODELS for q in DEFAULT_QPS]
@@ -770,6 +803,8 @@ def trace_cases():
         "2^20 cells": (trace_rows(random_traces(1 << 19, 6, 21),
                                   random_traces(349526, 6, 22)),
                        TRACE_CYCLES),
+        "stream chunk": (trace_rows(random_traces(JOINT_CHUNK, 1, 23)),
+                         {k: JOINT_CYCLES for k in TRACE_CYCLES}),
     }
 
 
@@ -1181,6 +1216,234 @@ def phase_serving_frontier(card: dict) -> dict:
         f"section {cpu_s:.2f} s")
     return {"max_abs_gbs": err_gbs, "max_abs_efficiency": err_eff,
             "cpu_wall_s": cpu_s}
+
+
+def joint_space(device) -> DesignSpace:
+    """The reference's ``joint_1e7`` space: 2,562,500 stream cells x 4
+    PHYs = 10,250,000 joint cells."""
+    return DesignSpace([
+        axis("protocol_param", [{"g_slots": float(g)} for g in
+                                np.linspace(1.0, 4.0, JOINT_PERTS)]),
+        axis("phy", list(JOINT_PHYS)),
+        axis("backlog", list(np.linspace(2.0, 128.0, JOINT_BACKLOGS))),
+        axis("read_fraction", list(np.linspace(0.0, 1.0, JOINT_MIXES))),
+    ], n_flits=JOINT_CYCLES, n_accesses=JOINT_CYCLES, device=device)
+
+
+@contextlib.contextmanager
+def eager_loop_calls(store: dict):
+    """Counts, in ``store``, the calls of the fixed engine's eager
+    per-cycle cores and of the trace kernels' plain versions."""
+    saved = {}
+    for mod, name in ((flitsim, "_symmetric_efficiency"),
+                      (flitsim, "_asymmetric_efficiency"),
+                      (ref, "symmetric_trace_compute"),
+                      (ref, "asymmetric_trace_compute")):
+        fn = saved[mod, name] = getattr(mod, name)
+        store[name] = 0
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            store[_name] += 1
+            return _fn(*a, **kw)
+        setattr(mod, name, counted)
+    try:
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+def streamed(space, prefetch: int):
+    """One streamed ``sim_bandwidth_gbs`` frontier of ``space`` with the
+    launch counts set to 0 just before it and read just after: ``(result,
+    wall s, counts, eager-loop calls, telemetry, peak GiB)``."""
+    eager: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    with eager_loop_calls(eager):
+        sr = space.evaluate(metrics=("sim_bandwidth_gbs",),
+                            stream=StreamConfig(chunk_cells=JOINT_CHUNK,
+                                                prefetch=prefetch))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return (sr, wall, counts, eager,
+            dict(flitsim.last_run_info()["stream.sim"]), peak)
+
+
+def phase_streaming() -> dict:
+    """The streamed path at full width: the ``joint_1e7`` space streamed
+    on the card at prefetch 2 (the default) and 1, one launch of each
+    trace kernel per dispatch and no eager per-cycle loop; its winners,
+    win counts and bests held bitwise against the card's materialized
+    fixed engine; then the perturbation axes on the card against the
+    CPU."""
+    log("streaming: joint_1e7 on the card")
+    space = joint_space("cuda")
+    runs: dict = {2: [], 1: []}
+    first = None
+    # the first run warms the card and the host up; then the two depths
+    # in turns
+    for turn, prefetch in enumerate((2, 1, 2, 1, 2)):
+        sr, wall, counts, eager, info, peak = streamed(space, prefetch)
+        rec = dict(wall_s=wall, dispatches=sr.n_dispatches,
+                   overlap_frac=info["overlap_frac"],
+                   marshal_s=info["marshal_s"],
+                   elapsed_s=info["elapsed_s"], peak_gib=peak,
+                   launches={k: n for k, n in counts.items() if n})
+        if turn:
+            runs[prefetch].append(rec)
+        if sr.peak_cells_per_chunk != JOINT_CHUNK * len(JOINT_PHYS):
+            raise AssertionError(f"joint_1e7: {sr.peak_cells_per_chunk} "
+                                 f"cells a chunk, want "
+                                 f"{JOINT_CHUNK * len(JOINT_PHYS)}")
+        want = {"symmetric_trace": sr.n_dispatches,
+                "asymmetric_trace": sr.n_dispatches}
+        if rec["launches"] != want:
+            raise AssertionError(f"joint_1e7 stream launched "
+                                 f"{rec['launches']}, want {want}")
+        if any(eager.values()):
+            raise AssertionError(f"the eager per-cycle cores ran on the "
+                                 f"stream: {eager}")
+        if first is None:
+            first = sr
+        elif not (np.array_equal(sr.winners.values, first.winners.values)
+                  and sr.win_counts == first.win_counts
+                  and sr.best_by_label == first.best_by_label):
+            raise AssertionError("joint_1e7: prefetch 1 and 2 differ")
+        log(f"streaming: joint_1e7 at prefetch {prefetch}"
+            f"{' (warm-up)' if not turn else ''}: "
+            f"{sr.n_stream_cells} stream cells, {sr.n_cells} joint cells "
+            f"in {sr.n_dispatches} dispatches, {wall:.3f} s wall "
+            f"(runner {info['elapsed_s']:.3f} s, marshal "
+            f"{info['marshal_s']:.3f} s, overlap_frac "
+            f"{info['overlap_frac']:.4f}); launches {rec['launches']}"
+            f"; peak {peak:.4f} GiB; eager loop calls {eager}")
+    sr = first
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mat = space.evaluate(metrics=("sim_bandwidth_gbs",))["sim_bandwidth_gbs"]
+    torch.cuda.synchronize()
+    mat_wall = time.perf_counter() - t0
+    mat_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    win = mat.argbest("protocol")
+    if win.dims != sr.winners.dims or win.coords != sr.winners.coords or \
+            not np.array_equal(win.values, sr.winners.values):
+        raise AssertionError("joint_1e7: streamed winners differ from the "
+                             "card's materialized fixed engine")
+    idx = np.argmax(mat.values, axis=1).ravel()
+    counts = np.bincount(idx, minlength=len(sr.labels))
+    v = np.moveaxis(mat.values, 1, 0).reshape(len(sr.labels), -1)
+    bests = {k: float(v[i].max()) for i, k in enumerate(sr.labels)}
+    if sr.win_counts != {k: int(counts[i])
+                         for i, k in enumerate(sr.labels)} or \
+            sr.best_by_label != bests:
+        raise AssertionError(f"joint_1e7: win counts / bests differ from "
+                             f"the materialized run ({sr.win_counts} vs "
+                             f"{counts.tolist()}; {sr.best_by_label} vs "
+                             f"{bests})")
+    log(f"streaming: joint_1e7 winners, win counts {sr.win_counts} and "
+        f"bests bitwise equal to the card's materialized fixed engine "
+        f"({mat_wall:.3f} s wall, peak {mat_peak:.4f} GiB; streamed peak "
+        f"{runs[2][0]['peak_gib']:.4f} GiB)")
+    return {"joint_1e7": {"runs": runs, "materialized_wall_s": mat_wall,
+                          "materialized_peak_gib": mat_peak,
+                          "n_cells": sr.n_cells,
+                          "n_stream_cells": sr.n_stream_cells,
+                          "dispatches": sr.n_dispatches,
+                          "peak_cells_per_chunk": sr.peak_cells_per_chunk,
+                          "win_counts": sr.win_counts},
+            **phase_perturbation()}
+
+
+def phase_perturbation() -> dict:
+    """The perturbation axes on the card against the CPU: a
+    ``catalog_param x phy x read_fraction x shoreline_mm`` evaluation and
+    a ``protocol_param`` space under ADAPTIVE_SIM (labels equal, numbers
+    within 1e-6), ``sweep_perturbed`` under ADAPTIVE_SIM against FIXED_SIM
+    (within 1e-3), and a constrained analytic stream against the card's
+    materialized frontier."""
+    log("perturbation axes on the card")
+    cat_axes = [axis("catalog_param", [{}, {"power_pj_per_bit": 0.8},
+                                       {"linear_density_gbs_mm": 1.25,
+                                        "areal_density_gbs_mm2": 0.5}]),
+                axis("phy", list(JOINT_PHYS)),
+                axis("read_fraction", list(np.linspace(0.0, 1.0, 41))),
+                axis("shoreline_mm", [2.0, 4.0, 8.0, 16.0])]
+    metrics = ("bandwidth_gbs", "pj_per_bit", "power_w", "gbs_per_watt",
+               "linear_density_gbs_mm", "areal_density_gbs_mm2",
+               "approach_pj_per_bit")
+    res = {d: DesignSpace(cat_axes, device=d).evaluate(metrics=metrics)
+           for d in ("cuda", "cpu")}
+    err_cat = max(close(f"catalog_param {m} card vs CPU",
+                        res["cuda"][m].values, res["cpu"][m].values, 1e-6)
+                  for m in metrics)
+    cons = SelectionConstraints(packaging="UCIe-A", max_power_w=40.0)
+    fronts = [r.frontier("bandwidth_gbs", where=r.feasible(cons)).values
+              for r in res.values()]
+    if not np.array_equal(fronts[0], fronts[1]):
+        raise AssertionError("catalog_param frontier differs between the "
+                             "card and the CPU")
+    sim_axes = [axis("protocol_param", [{}, {"g_slots": 2.0},
+                                        {"credit_lines": 0.5},
+                                        {"read_lanes": 0.8,
+                                         "total_lanes": 1.2}]),
+                axis("phy", list(JOINT_PHYS)),
+                axis("backlog", [1.0, 2.0, 8.0, 64.0]),
+                axis("read_fraction", list(np.linspace(0.0, 1.0, 21)))]
+    runs: dict = {}
+    reset_counts()
+    with runner_times(runs):
+        card = DesignSpace(sim_axes, sim=ADAPTIVE_SIM, device="cuda")\
+            .evaluate(metrics=("sim_bandwidth_gbs",))["sim_bandwidth_gbs"]
+    torch.cuda.synchronize()
+    counts = read_counts()
+    one_launch_per_run("the protocol_param space", counts, runs)
+    if counts["asymmetric_periodic"] <= 0 or \
+            counts["symmetric_periodic"] + counts["symmetric_run"] <= 0:
+        raise AssertionError(f"the protocol_param space launched {counts}")
+    cpu = DesignSpace(sim_axes, sim=ADAPTIVE_SIM, device="cpu").evaluate(
+        metrics=("sim_bandwidth_gbs",))["sim_bandwidth_gbs"]
+    err_sim = close("protocol_param adaptive card vs CPU", card.values,
+                    cpu.values, 1e-6)
+    if not np.array_equal(card.argbest("protocol").values,
+                          cpu.argbest("protocol").values):
+        raise AssertionError("protocol_param winners differ between the "
+                             "card and the CPU")
+    perts = [{}, {"credit_lines": 0.5}, {"g_slots": 0.8},
+             {"read_lanes": 0.8, "total_lanes": 1.2}]
+    kw = dict(mixes=[(1, 0), (2, 1), (1, 1), (1, 3), (0, 1)],
+              backlogs=[2.0, 16.0, 64.0], device="cuda")
+    ada = flitsim.sweep_perturbed(perts, sim=ADAPTIVE_SIM, **kw)[
+        "sim_efficiency"].values
+    fix = flitsim.sweep_perturbed(perts, **kw)["sim_efficiency"].values
+    err_sweep = close("sweep_perturbed adaptive vs fixed", ada, fix, 1e-3)
+    cat_space = DesignSpace([axis("read_fraction",
+                                  list(np.linspace(0.0, 1.0, 101))),
+                             axis("shoreline_mm", [2.0, 4.0, 8.0, 16.0])],
+                            device="cuda")
+    ref = cat_space.evaluate(metrics=("bandwidth_gbs", "power_w"))
+    csr = cat_space.evaluate(metrics=("bandwidth_gbs",), stream=StreamConfig(
+        chunk_cells=64, constraints=cons))
+    if not np.array_equal(csr.winners.values, ref.frontier(
+            "bandwidth_gbs", where=ref.feasible(cons)).values):
+        raise AssertionError("the streamed analytic frontier differs from "
+                             "the card's materialized one")
+    log(f"perturbation axes: catalog_param card vs CPU max |diff| "
+        f"{err_cat}, frontiers equal; protocol_param ADAPTIVE_SIM "
+        f"(sim_bandwidth_gbs) card vs CPU max |diff| {err_sim}, winners "
+        f"equal, launches {counts}; sweep_perturbed adaptive vs fixed max "
+        f"|diff| {err_sweep}; constrained analytic stream "
+        f"({csr.n_dispatches} dispatches) equal to the materialized "
+        f"frontier")
+    return {"perturbation": {"catalog_max_abs": err_cat,
+                             "protocol_param_max_abs": err_sim,
+                             "sweep_adaptive_vs_fixed": err_sweep,
+                             "launches": counts}}
 
 
 def phase_fig13():
@@ -2226,6 +2489,8 @@ def main() -> None:
                          "flit_sim.cu files and of the tree's in turns")
     ap.add_argument("--traces", action="store_true",
                     help="only check and time the trace-scan kernels")
+    ap.add_argument("--streaming", action="store_true",
+                    help="only run the streamed and perturbation phases")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2242,6 +2507,12 @@ def main() -> None:
         records = phase_traces()
         print(card)
         print(json.dumps({"traces": records}))
+        return
+    if args.streaming:
+        _build.build(["flit_sim"])
+        records = phase_streaming()
+        print(card)
+        print(json.dumps({"streaming": records}))
         return
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
@@ -2261,6 +2532,7 @@ def main() -> None:
     lm_records["rglru_scan"] = phase_lru_kernel()
     lm_records["ssd_scan"] = phase_ssd_kernel()
     counts = phase_main_path()
+    stream = phase_streaming()
     serving = phase_serving()
 
     big = records["2^20 cells"]
@@ -2318,8 +2590,15 @@ def main() -> None:
                 "cells", "phases", "cycles")},
             "serving_wall_s": counts["serving"]["wall_s"],
             "serving_plain_wall_s": counts["serving"]["plain_wall_s"],
+            "stream_launches": stream["joint_1e7"]["runs"][2][0][
+                "launches"][name],
+            "stream_dispatches": stream["joint_1e7"]["dispatches"],
+            **{f"stream_chunk_{k}": trace_records["stream chunk"][name][k]
+               for k in ("ms", "back_to_back_ms", "card_ms", "plain_ms",
+                         "bound_ms", "bound_by", "cells", "cycles")},
         })
     kernels += lm_kernel_records(lm_records, serving)
+    log(f"streaming [{card}]: {json.dumps(stream)}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -41,7 +41,11 @@ Trace-scan mode (:func:`simulate_trace_grid`, the design space's ``trace``
 axis) runs each family's phases back to back with the queue/credit state
 carried across phase boundaries, in ONE launch per family on the card
 (the ``symmetric_trace`` and ``asymmetric_trace`` kernels) and in their
-plain versions on the CPU.
+plain versions on the CPU.  A one-phase trace is the fixed engine's static
+cell bit for bit, so :func:`_run_cells_fixed` runs flat per-cell
+fixed-horizon grids (each cell its own parameter column, mix and backlog;
+the streamed chunks of :mod:`repro_torch.core.streaming`) as ONE launch of
+each trace kernel.
 
 Every entry point takes ``device=`` (default ``"cuda"``; see
 :mod:`repro_torch.device`).
@@ -512,11 +516,13 @@ def last_run_info() -> Dict[str, Dict[str, Any]]:
     ``"horizon"``).  Periodic runs add a ``periods`` histogram.  Fixed
     runs do not update it.  Trace-scan runs are kept under
     ``family + ".trace"`` with ``mode="trace"`` (see
-    :func:`_record_trace`)."""
+    :func:`_record_trace`), streamed evaluations under ``"stream.sim"`` /
+    ``"stream.catalog"`` with ``mode="stream"`` (see
+    :func:`_record_stream`)."""
     out: Dict[str, Dict[str, Any]] = {}
     for fam, info in _LAST_RUN_INFO.items():
         d = {k: v for k, v in info.items() if not k.startswith("_")}
-        if d["mode"] == "trace":
+        if d["mode"] in ("trace", "stream"):
             out[fam] = d
             continue
         chunk = d["chunk"]
@@ -566,6 +572,24 @@ def _record_trace(family: str, phases: int, cycles: int, cells: int, *,
         "trace_cells": int(cells),
         "state_carry_depth": (int(phases) - 1) * int(cycles),
         "engine": engine, "elapsed_s": elapsed_s,
+    }
+
+
+def _record_stream(family: str, *, dispatches: int, prefetch: int,
+                   pad_cells: int, overlap_frac: float, cells: int,
+                   elapsed_s: float, marshal_s: float) -> None:
+    """Telemetry of a streamed evaluation (``stream.*`` families): the
+    dispatch count, the bounded in-flight depth, the replicated tail cells
+    over all dispatches, the share of the host's marshalling wall time
+    spent while the card still ran an earlier chunk (``overlap_frac``; 0
+    on the CPU, where each chunk completes at once), the cells streamed, the wall seconds (the card's work included) and the
+    marshalling seconds (``marshal_s / elapsed_s`` bounds what overlap can
+    win)."""
+    _LAST_RUN_INFO[family] = {
+        "mode": "stream", "dispatches": int(dispatches),
+        "prefetch": int(prefetch), "pad_cells": int(pad_cells),
+        "overlap_frac": float(overlap_frac), "cells": int(cells),
+        "elapsed_s": elapsed_s, "marshal_s": marshal_s,
     }
 
 
@@ -1006,6 +1030,27 @@ def _run_asymmetric_trace(pstack, xs, ys, cycles: int) -> torch.Tensor:
     return _run_trace("asymmetric", pstack, ASYM_ROWS, cycles, xs, ys)
 
 
+def _run_cells_fixed(sym=None, asym=None, *, n_flits: int,
+                     n_accesses: int):
+    """Per-cell fixed-horizon runner: ``sym`` is ``(params [SYM_ROWS, C],
+    x [1, C], y [1, C], backlog [1, C])`` and ``asym`` ``(params
+    [ASYM_ROWS, C'], x [1, C'], y [1, C'])``, each cell its own parameter
+    column.  ONE one-phase ``symmetric_trace`` launch (``n_flits``
+    cycles) and ONE ``asymmetric_trace`` launch (``n_accesses``) on the
+    card — the fixed engine's static cells bit for bit — and their plain
+    versions on the CPU.  Returns the ``[C]`` / ``[C']`` efficiencies
+    (``None`` for a family not given), enqueued on the current stream
+    without a host sync."""
+    from repro_torch.kernels.flit_sim import ops as fs_ops
+    out_sym = out_asym = None
+    if sym is not None:
+        out_sym = fs_ops.symmetric_trace(*sym, cycles=int(n_flits))[0]
+    if asym is not None:
+        out_asym = fs_ops.asymmetric_trace(*asym,
+                                           cycles=int(n_accesses))[0]
+    return out_sym, out_asym
+
+
 # -- engine entry point (what DesignSpace lowers onto) ------------------------
 
 #: The five canonical read:write mixes every validation sweep covers.
@@ -1225,6 +1270,37 @@ def _sweep_impl(protocols: Optional[Sequence[str]] = None,
                            efficiency=eff[:, 0, :])
     return SweepResult(protocols=keys, mixes=mix_tuples,
                        backlogs=backlog_vals, efficiency=eff)
+
+
+def sweep_perturbed(perturbations: Sequence[Mapping[str, float]],
+                    protocols: Optional[Sequence[str]] = None,
+                    mixes=None,
+                    backlogs: Union[None, float, Sequence[float]] = None,
+                    *, n_flits: int = 2048, n_accesses: int = 4096,
+                    sim: Optional[SimConfig] = None, device=None):
+    """Protocol-parameter sensitivity sweep: multiplicative ``{field:
+    scale}`` perturbations (slot counts, credit limits, lane splits) of
+    the parameter stacks, run perturbation-major through the fixed engine
+    or, under ``ADAPTIVE_SIM``, the adaptive kernels.
+
+    Front end over the axes-first API: returns a
+    :class:`repro_torch.core.space.SpaceResult` whose ``sim_efficiency``
+    array carries a ``protocol_param`` axis — put ``{}`` first to get the
+    baseline row."""
+    from repro_torch.core.space import DesignSpace, axis
+    keys = tuple(protocols) if protocols is not None \
+        else SIMULATED_PROTOCOLS
+    axes = [axis("protocol_param", list(perturbations)),
+            axis("protocol", keys),
+            axis("mix", _normalize_mixes(mixes))]
+    if backlogs is not None and np.ndim(backlogs) > 0:
+        axes.append(axis("backlog", list(np.atleast_1d(backlogs))))
+        default_backlog = 64.0
+    else:
+        default_backlog = 64.0 if backlogs is None else float(backlogs)
+    return DesignSpace(axes, default_backlog=default_backlog,
+                       n_flits=n_flits, n_accesses=n_accesses, sim=sim,
+                       device=device).evaluate(metrics=("sim_efficiency",))
 
 
 # -- scalar entry points (thin wrappers over a [1, 1, 1] grid) ----------------

@@ -8,7 +8,9 @@ engine the axes-first :class:`repro_torch.core.space.DesignSpace` lowers
 onto.  The PHY is an axis, not a key suffix:
 :func:`run_catalog_phys_program` / :func:`run_approach_phys_program`
 stack (phy x system) pairs into one program, which is what
-``axis("phy", [...])`` lowers onto.
+``axis("phy", [...])`` lowers onto; :func:`perturbed_catalog_items`
+stacks (catalog_param x system) pairs, what ``axis("catalog_param",
+[...])`` lowers onto.
 """
 from __future__ import annotations
 
@@ -106,6 +108,23 @@ def phy_stacked_items(items: Tuple[Tuple[str, MemorySystem], ...],
         (f"{key}@{phy.name}", dataclasses.replace(ms, phy=phy,
                                                   name=f"{ms.name}/{phy.name}"))
         for phy in phys for key, ms in items)
+
+
+def perturbed_catalog_items(items: Tuple[Tuple[str, MemorySystem], ...],
+                            perturbations
+                            ) -> Tuple[Tuple[str, MemorySystem], ...]:
+    """Flatten (catalog_param x system) into one stacked catalog: each
+    multiplicative ``{field: scale}`` perturbation applied to every
+    system's PHY (``UCIePhy.perturbed``); systems without a PHY (bus
+    baselines) pass through unperturbed.  Perturbation-major, so program
+    outputs reshape to ``[Q, S, ...]``."""
+    out = []
+    for pert in perturbations:
+        for key, ms in items:
+            if ms.phy is not None and pert:
+                ms = dataclasses.replace(ms, phy=ms.phy.perturbed(pert))
+            out.append((key, ms))
+    return tuple(out)
 
 
 def run_catalog_program(items: Tuple[Tuple[str, MemorySystem], ...],

@@ -4,7 +4,9 @@
 :class:`FrontierReport` sections whose payloads have the schema of the
 reference's ``design_space.json`` sections:
 
-* ``"frontier"`` — the calling space's own winner map (materialized).
+* ``"frontier"`` — the calling space's own winner map (materialized, or
+  streamed with the ``stream=`` option: ``engine`` ``"streaming"`` and
+  ``win_counts``).
 * ``"joint"`` — :func:`repro_torch.core.space.joint_frontier`.
 * ``"phy"`` — the PHY-stacked analytic frontier (UCIe-A/S, 32G + 48G).
 * ``"sim_phy"`` — its cycle-level counterpart (simulated efficiency x raw
@@ -94,27 +96,41 @@ def build_report(spec: Optional[ReportSpec] = None, *, space=None,
 
 def _frontier_section(space, verbose, device, *,
                       metric: str = "bandwidth_gbs", dim: str = "system",
-                      mode: str = "max", constraints=None, sim=None
-                      ) -> Dict[str, Any]:
-    """The calling space's own winner map (``SpaceResult.frontier``)."""
-    metrics = [metric]
-    if constraints is not None:
-        if constraints.max_power_w is not None:
-            metrics.append("power_w")
-        if constraints.required_bandwidth_gbs is not None:
-            metrics.append("bandwidth_gbs")
-    res = space.evaluate(metrics=tuple(dict.fromkeys(metrics)), sim=sim)
-    where = res.feasible(constraints) if constraints is not None else None
-    winners = res.frontier(metric, dim, mode, where=where)
+                      mode: str = "max", constraints=None, sim=None,
+                      stream=None) -> Dict[str, Any]:
+    """The calling space's own winner map — materialized
+    (``SpaceResult.frontier``) or streamed (``StreamConfig``), one payload
+    schema for both."""
+    if stream is not None:
+        res = space.evaluate(metrics=(metric,), sim=sim, stream=stream)
+        winners = res.winners
+        extra = {"engine": "streaming", "win_counts": res.win_counts,
+                 "n_cells": res.n_cells,
+                 "peak_cells_per_chunk": res.peak_cells_per_chunk,
+                 "devices": res.devices, "compiles": res.compiles}
+        mode = res.mode
+    else:
+        metrics = [metric]
+        if constraints is not None:
+            if constraints.max_power_w is not None:
+                metrics.append("power_w")
+            if constraints.required_bandwidth_gbs is not None:
+                metrics.append("bandwidth_gbs")
+        res = space.evaluate(metrics=tuple(dict.fromkeys(metrics)),
+                             sim=sim)
+        where = res.feasible(constraints) if constraints is not None \
+            else None
+        winners = res.frontier(metric, dim, mode, where=where)
+        extra = {"engine": "materialized"}
     payload = {"metric": metric, "dim": dim, "mode": mode,
                "dims": list(winners.dims),
                "coords": [[str(c) for c in coord]
                           for coord in winners.coords],
                "winners": np.asarray(winners.values, dtype=object)
-               .tolist(), "engine": "materialized"}
+               .tolist(), **extra}
     if verbose:
         print(f"frontier: {metric} argbest({dim!r}, {mode!r}) over dims "
-              f"{payload['dims']} [materialized]")
+              f"{payload['dims']} [{extra['engine']}]")
     return payload
 
 

@@ -1,13 +1,15 @@
 """Axes-first design-space API — port of :mod:`repro.core.space`.
 
 * :func:`axis` / :class:`Axis` / :class:`AxisSet` — named design-space
-  axes.  The port evaluates ``phy``, ``protocol``, ``read_fraction``,
-  ``mix``, ``backlog``, ``trace``, ``shoreline_mm``, ``workload_config``
-  and the Fig-13 pipelining axes ``k``, ``ucie_line_ui`` and
-  ``device_line_ui``.
+  axes: ``catalog_param``, ``phy``, ``protocol_param``, ``protocol``,
+  ``backlog``, ``trace``, ``workload_config``, ``mix``,
+  ``read_fraction``, ``shoreline_mm`` and the Fig-13 pipelining axes
+  ``k``, ``ucie_line_ui`` and ``device_line_ui``.
 * :class:`DesignSpace` — lowers an axis combination onto the analytic
   catalog programs (:mod:`repro_torch.core.memsys`) and the flit
-  simulators (:mod:`repro_torch.core.flitsim`) on one device.
+  simulators (:mod:`repro_torch.core.flitsim`) on one device;
+  ``evaluate(..., stream=StreamConfig(...))`` streams one metric's
+  frontier chunk by chunk instead (:mod:`repro_torch.core.streaming`).
 * :class:`SpaceResult` / :class:`SpaceArray` — named-axis outputs (host
   numpy arrays) with ``sel()`` / ``argbest()`` / ``frontier()`` and the
   first-class ``feasible(constraints)`` mask.
@@ -23,7 +25,7 @@ counterpart here.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -95,6 +97,75 @@ FIXED_SIM = SimConfig()
 ADAPTIVE_SIM = SimConfig(mode="adaptive")
 
 
+@dataclasses.dataclass(frozen=True)
+class StreamConfig:
+    """Execution config of the streaming evaluation mode.
+
+    ``DesignSpace.evaluate(..., stream=StreamConfig(...))`` switches from
+    the materialized engines to :mod:`repro_torch.core.streaming`: the
+    cell space is flattened along ``axis_order`` and cut into chunks of at
+    most ``chunk_cells`` cells, and frontier / argbest / feasibility
+    resolve as running reductions, so only the winner codes (one small
+    integer per cell) come back.
+
+    * ``chunk_cells`` — the per-dispatch cell budget (the peak number of
+      cells resident at once); clamped down when the space is smaller.
+    * ``axis_order`` — the chunked cell-axis order (default: canonical
+      :data:`AXIS_ORDER`); a permutation of the space's cell axes that
+      changes the dispatch order only, never the result.
+    * ``devices`` — ``None`` or ``1``: the port streams on one card.
+    * ``mode`` — argbest direction; ``None`` picks the metric's natural
+      one (``min`` for ``pj_per_bit`` / ``power_w``, else ``max``).
+    * ``constraints`` — optional
+      :class:`repro_torch.core.selector.SelectionConstraints` folded into
+      the analytic metrics' reduction (cells with no admissible system
+      read ``"(none)"``, as in the materialized frontier).
+    * ``prefetch`` — the bounded in-flight depth: the host marshals chunk
+      ``t+1`` while up to ``prefetch`` earlier chunks run on the card, and
+      retires them strictly FIFO, so every depth folds in the sequential
+      loop's order (``prefetch=1``) and gives identical results.
+    """
+
+    chunk_cells: int = 4096
+    axis_order: Optional[Tuple[str, ...]] = None
+    devices: Optional[int] = None
+    mode: Optional[str] = None
+    constraints: Any = None
+    prefetch: int = 2
+
+    def __post_init__(self):
+        if int(self.chunk_cells) < 1:
+            raise ValueError(f"StreamConfig.chunk_cells must be >= 1, got "
+                             f"{self.chunk_cells}")
+        if int(self.prefetch) < 1:
+            raise ValueError(f"StreamConfig.prefetch must be >= 1, got "
+                             f"{self.prefetch}")
+        if self.devices is not None and int(self.devices) != 1:
+            raise ValueError(
+                f"StreamConfig(devices={self.devices}): the port streams "
+                "on one card (devices=None or 1); a stream sharded across "
+                "cards is not ported")
+        if self.mode not in (None, "max", "min"):
+            raise ValueError(f"StreamConfig.mode must be None, 'max' or "
+                             f"'min', got {self.mode!r}")
+        if self.axis_order is not None:
+            object.__setattr__(self, "axis_order",
+                               tuple(str(a) for a in self.axis_order))
+
+    def key(self) -> Tuple:
+        """The reference's static key: which checks are active (the
+        constraint STRUCTURE, last) and every other field."""
+        cons = self.constraints
+        cons_key = None if cons is None else (
+            cons.packaging, cons.max_relative_bit_cost is not None,
+            cons.max_backlog_knee is not None,
+            cons.max_power_w is not None,
+            cons.required_bandwidth_gbs is not None)
+        return (int(self.chunk_cells), self.axis_order,
+                None if self.devices is None else int(self.devices),
+                self.mode, int(self.prefetch), cons_key)
+
+
 # =========================================================================
 # Axes
 # =========================================================================
@@ -108,13 +179,6 @@ AXIS_ORDER: Tuple[str, ...] = (
     "catalog_param", "phy", "protocol_param", "protocol", "backlog",
     "trace", "workload_config", "mix", "read_fraction", "shoreline_mm",
     "k", "ucie_line_ui", "device_line_ui")
-
-#: the axes this port evaluates (the rest wait for later slices)
-PORTED_AXES: Tuple[str, ...] = (
-    "backlog", "device_line_ui", "k", "mix", "phy", "protocol",
-    "read_fraction", "shoreline_mm", "trace", "ucie_line_ui",
-    "workload_config")
-
 
 def _mix_label(x: float, y: float) -> str:
     return f"{x:g}R{y:g}W"
@@ -145,6 +209,20 @@ def _as_workload(v) -> Tuple[str, Any]:
     return str(name), w
 
 
+def _as_perturbation(v) -> Tuple[str, Tuple[Tuple[str, float], ...]]:
+    """Normalize a ``protocol_param`` / ``catalog_param`` entry to
+    (label, sorted field->scale)."""
+    if isinstance(v, Mapping):
+        label, pert = None, v
+    else:
+        label, pert = v
+    items = tuple(sorted((str(k), float(s)) for k, s in pert.items()))
+    if label is None:
+        # "+"-joined (not ","): labels land in CSV columns
+        label = "+".join(f"{k}x{s:g}" for k, s in items) or "baseline"
+    return str(label), items
+
+
 @dataclasses.dataclass(frozen=True)
 class Axis:
     """One named design-space axis: canonical values plus labels."""
@@ -155,6 +233,23 @@ class Axis:
 
     def __len__(self) -> int:
         return len(self.values)
+
+    def index(self, label) -> int:
+        """Position of ``label`` (accepts raw values for mix-like axes and
+        ``UCIePhy`` objects for the ``phy`` axis)."""
+        if label in self.labels:
+            return self.labels.index(label)
+        if self.name == "phy" and label in self.values:
+            return self.values.index(label)
+        if self.name == "mix" and label != OWN_MIX:
+            return self.labels.index(_mix_label(*_as_mix_tuple(label)))
+        if self.name in ("backlog", "shoreline_mm", "read_fraction",
+                         "ucie_line_ui", "device_line_ui"):
+            return self.labels.index(float(label))
+        if self.name == "k":
+            return self.labels.index(int(label))
+        raise KeyError(f"label {label!r} not on axis {self.name!r}: "
+                       f"{self.labels}")
 
 
 def axis(name: str, values: Sequence[Any],
@@ -167,8 +262,11 @@ def axis(name: str, values: Sequence[Any],
     :class:`repro_torch.core.ucie.UCIePhy` instances; ``protocol``
     flit-simulator keys; ``trace``
     :class:`repro_torch.traces.TrafficTrace` instances, padded to one
-    phase count."""
-    vals = list(values.items()) if isinstance(values, dict) else \
+    phase count.  ``protocol_param`` accepts ``{field: scale}`` dicts or
+    ``(label, dict)`` pairs — multiplicative perturbations of the
+    flit-simulator parameter stacks; ``catalog_param`` is its analytic
+    twin (PHY pJ/b and shoreline/areal density scales)."""
+    vals = list(values.items()) if isinstance(values, Mapping) else \
         list(values)
     if not vals:
         raise ValueError(f"axis {name!r} needs at least one value")
@@ -182,6 +280,17 @@ def axis(name: str, values: Sequence[Any],
         labs = [p.name for p in vals]
         if len(set(labs)) != len(labs):
             raise ValueError(f"duplicate phy names on the axis: {labs}")
+    elif name == "catalog_param":
+        from repro_torch.core.ucie import PERTURBABLE_PHY_FIELDS
+        norm = [_as_perturbation(v) for v in vals]
+        for _, items in norm:
+            unknown = sorted(k for k, _ in items
+                             if k not in PERTURBABLE_PHY_FIELDS)
+            if unknown:
+                raise ValueError(
+                    f"unknown catalog perturbation fields {unknown}; "
+                    f"choose from {PERTURBABLE_PHY_FIELDS}")
+        labs = [lab for lab, _ in norm]
     elif name == "mix":
         norm = [OWN_MIX if (isinstance(v, str) and v == OWN_MIX)
                 else _as_mix_tuple(v) for v in vals]
@@ -210,6 +319,9 @@ def axis(name: str, values: Sequence[Any],
         labs = [t.name for t in norm]
         if len(set(labs)) != len(labs):
             raise ValueError(f"duplicate trace names on the axis: {labs}")
+    elif name == "protocol_param":
+        norm = [_as_perturbation(v) for v in vals]
+        labs = [lab for lab, _ in norm]
     elif name == "k":
         norm = [int(v) for v in vals]
         labs = list(norm)
@@ -217,10 +329,6 @@ def axis(name: str, values: Sequence[Any],
                   "device_line_ui"):
         norm = [float(v) for v in vals]
         labs = list(norm)
-    elif name in AXIS_ORDER:
-        raise NotImplementedError(
-            f"axis {name!r} is not ported yet; this port evaluates "
-            f"{PORTED_AXES}")
     else:
         raise ValueError(f"unknown axis name {name!r}; choose from "
                          f"{AXIS_ORDER}")
@@ -724,7 +832,8 @@ class DesignSpace:
                         + list(APPROACH_METRICS))
             else:
                 out += list(ANALYTIC_METRICS) + list(SYSTEM_METRICS)
-            if "backlog" in names or "protocol" in names:
+            if ("backlog" in names or "protocol" in names
+                    or "protocol_param" in names):
                 out += list(SIM_METRICS)
                 if "phy" in names or self.phy is not None:
                     out += list(SIM_PHY_METRICS)
@@ -749,9 +858,22 @@ class DesignSpace:
     # -- evaluation ---------------------------------------------------------
 
     def evaluate(self, metrics: Optional[Sequence[str]] = None, *,
-                 sim: Optional[SimConfig] = None) -> SpaceResult:
+                 sim: Optional[SimConfig] = None,
+                 stream: Optional[StreamConfig] = None):
         """Resolve the requested metrics over the full joint axis space;
-        ``sim`` overrides the space's :class:`SimConfig` for this call."""
+        ``sim`` overrides the space's :class:`SimConfig` for this call.
+
+        ``stream`` (a :class:`StreamConfig`) switches to the streaming
+        engine for 10^6-10^8-cell spaces: ONE metric's frontier reduced
+        chunk by chunk, returned as a
+        :class:`repro_torch.core.streaming.StreamResult` whose winner
+        labels equal the materialized ``argbest`` instead of a
+        :class:`SpaceResult`."""
+        if stream is not None:
+            from repro_torch.core import streaming
+            return streaming.stream_evaluate(
+                self, metrics, sim if sim is not None else self.sim,
+                stream)
         cfg = sim if sim is not None else self.sim
         wanted = tuple(metrics) if metrics is not None else \
             self._default_metrics()
@@ -776,9 +898,16 @@ class DesignSpace:
         return SpaceResult(axes=self.axes, arrays=arrays, sim=cfg,
                            device=self.device)
 
+    def _perturbations(self) -> List[Dict[str, float]]:
+        cp_ax = self.axes.get("catalog_param")
+        return ([dict(p) for _, p in cp_ax.values]
+                if cp_ax is not None else [{}])
+
     def _eval_catalog(self, wanted) -> Dict[str, SpaceArray]:
         from repro_torch.core import memsys
         phy_ax = self.axes.get("phy")
+        cp_ax = self.axes.get("catalog_param")
+        perts = self._perturbations()
         x, y, mix_dims = self._mix_arrays()
         sl_ax = self.axes.get("shoreline_mm")
         if sl_ax is not None:
@@ -789,34 +918,44 @@ class DesignSpace:
             xb, yb = x, y
         xt, yt, slt = self._tensor(xb), self._tensor(yb), self._tensor(sl)
         if phy_ax is not None:
-            # PHY-stacked programs; approaches as the system dim
+            # PHY-stacked programs: (catalog_param x phy) folded into the
+            # phys stack, approaches as the system dim
             items = memsys.approach_catalog_items()
-            grids = memsys.run_catalog_phys_program(items, phy_ax.values,
-                                                    xt, yt, slt)
-            # [F, S, ...] -> [S, F, ...] (system before phy)
-            grids = [np.moveaxis(g.cpu().numpy(), 0, 1) for g in grids]
+            phys = [phy.perturbed(p) for p in perts for phy in phy_ax.values]
+            grids = memsys.run_catalog_phys_program(items, phys, xt, yt, slt)
+            lead = (len(perts), len(phy_ax), len(items))
+            # [Q*F, S, ...] -> [Q, S, F, ...] (system before phy)
+            grids = [np.moveaxis(g.cpu().numpy().reshape(lead + g.shape[2:]),
+                                 2, 1) for g in grids]
             extra_dims: Tuple[str, ...] = ("phy",)
             extra_coords: Tuple[Tuple[Any, ...], ...] = (phy_ax.labels,)
         else:
             items = (memsys.default_catalog_items() if self.catalog is None
                      else tuple(self.catalog.items()))
-            grids = [g.cpu().numpy() for g in
-                     memsys.run_catalog_program(items, xt, yt, slt)]
+            flat = (memsys.perturbed_catalog_items(items, perts)
+                    if cp_ax is not None else items)
+            lead = (len(perts), len(items))
+            grids = [g.cpu().numpy().reshape(lead + g.shape[1:]) for g in
+                     memsys.run_catalog_program(flat, xt, yt, slt)]
             extra_dims, extra_coords = (), ()
         bw, pjb, pw, gpw = grids
         keys = tuple(k for k, _ in items)
-        dims = ("system",) + extra_dims + mix_dims + (
+        dims = ("catalog_param", "system") + extra_dims + mix_dims + (
             ("shoreline_mm",) if sl_ax is not None else ())
-        coords = (keys,) + extra_coords \
+        coords = ((cp_ax.labels if cp_ax is not None else ("baseline",)),
+                  keys) + extra_coords \
             + tuple(self.axes[d].labels for d in mix_dims) \
             + ((sl_ax.labels,) if sl_ax is not None else ())
+        if cp_ax is None:
+            dims, coords = dims[1:], coords[1:]
         vals = {"bandwidth_gbs": bw, "pj_per_bit": pjb, "power_w": pw,
                 "gbs_per_watt": gpw}
         out: Dict[str, SpaceArray] = {}
         for name in ANALYTIC_METRICS:
             if name in wanted:
+                v = vals[name] if cp_ax is not None else vals[name][0]
                 # squeeze the placeholder mix point when no traffic axis
-                v = vals[name].reshape(tuple(len(c) for c in coords))
+                v = v.reshape(tuple(len(c) for c in coords))
                 out[name] = SpaceArray(dims, coords, v)
         if "latency_ns" in wanted:
             out["latency_ns"] = SpaceArray(
@@ -833,19 +972,27 @@ class DesignSpace:
         from repro_torch.core import memsys
         from repro_torch.core.protocols import ALL_APPROACHES
         phy_ax = self.axes.get("phy")
+        cp_ax = self.axes.get("catalog_param")
+        perts = self._perturbations()
         if self.phy is None and phy_ax is None:
             raise ValueError("approach metrics need DesignSpace(phy=...) "
                              "or a 'phy' axis")
-        phys = list(phy_ax.values) if phy_ax is not None else [self.phy]
+        base_phys = list(phy_ax.values) if phy_ax is not None \
+            else [self.phy]
+        phys = [p.perturbed(q) for q in perts for p in base_phys]
         x, y, mix_dims = self._mix_arrays()
         lin, areal, pjb = memsys.run_approach_phys_program(
             phys, self._tensor(x), self._tensor(y))
         keys = tuple(ALL_APPROACHES)
-        dims = ("approach",) + (("phy",) if phy_ax is not None else ()) \
-            + mix_dims
-        coords = (keys,) + ((phy_ax.labels,) if phy_ax is not None
-                            else ()) \
+        lead = (len(perts), len(base_phys), len(keys))
+        dims = ("catalog_param", "approach") + (
+            ("phy",) if phy_ax is not None else ()) + mix_dims
+        coords = ((cp_ax.labels if cp_ax is not None else ("baseline",)),
+                  keys) + ((phy_ax.labels,) if phy_ax is not None
+                           else ()) \
             + tuple(self.axes[d].labels for d in mix_dims)
+        if cp_ax is None:
+            dims, coords = dims[1:], coords[1:]
         vals = {"linear_density_gbs_mm": lin,
                 "areal_density_gbs_mm2": areal,
                 "approach_pj_per_bit": pjb}
@@ -853,10 +1000,13 @@ class DesignSpace:
         for name in APPROACH_METRICS:
             if name not in wanted:
                 continue
-            # [F, A, ...] -> [A, F, ...] (approach before phy)
-            v = np.moveaxis(vals[name].cpu().numpy(), 0, 1)
-            if phy_ax is None:
-                v = v[:, 0]
+            # [Q*F, A, ...] -> [Q, A, F, ...] (approach before phy)
+            v = vals[name].cpu().numpy()
+            v = np.moveaxis(v.reshape(lead + v.shape[2:]), 2, 1)
+            if cp_ax is None:
+                v = v[0]
+            if phy_ax is None:          # drop the singleton phy dim
+                v = np.take(v, 0, axis=2 if cp_ax is not None else 1)
             out[name] = SpaceArray(
                 dims, coords, v.reshape(tuple(len(c) for c in coords)))
         return out
@@ -885,6 +1035,28 @@ class DesignSpace:
             "into the simulated efficiency — add a 'phy' axis or pass "
             "DesignSpace(phy=...)")
 
+    def _protocol_perturbations(self) -> List[Dict[str, float]]:
+        pert_ax = self.axes.get("protocol_param")
+        return ([dict(p) for _, p in pert_ax.values]
+                if pert_ax is not None else [{}])
+
+    def _phy_dim(self, dims, coords, v, metric: str):
+        """``v`` over ``dims`` times each PHY's raw link bandwidth: a
+        ``phy`` dim after ``protocol`` (none for ``DesignSpace(phy=...)``)."""
+        phys = self._phys(metric)
+        raw = np.asarray([p.raw_bandwidth_gbs for p in phys], np.float32)
+        ax_p = dims.index("protocol")
+        v = (np.expand_dims(np.asarray(v), ax_p + 1)
+             * raw.reshape((len(raw),) + (1,) * (np.ndim(v) - ax_p - 1)))
+        bdims = tuple(dims[:ax_p + 1]) + ("phy",) + tuple(dims[ax_p + 1:])
+        bcoords = tuple(coords[:ax_p + 1]) \
+            + (tuple(p.name for p in phys),) + tuple(coords[ax_p + 1:])
+        if "phy" not in self.axes:      # DesignSpace(phy=...): no phy dim
+            v = np.take(v, 0, axis=ax_p + 1)
+            bdims = bdims[:ax_p + 1] + bdims[ax_p + 2:]
+            bcoords = bcoords[:ax_p + 1] + bcoords[ax_p + 2:]
+        return SpaceArray(bdims, bcoords, v)
+
     def _eval_sim(self, wanted, sim: SimConfig) -> Dict[str, SpaceArray]:
         from repro_torch.core import flitsim
         keys = self._sim_protocols()
@@ -897,20 +1069,28 @@ class DesignSpace:
         bl_ax = self.axes.get("backlog")
         backlogs = np.asarray(bl_ax.values if bl_ax is not None
                               else [self.default_backlog], np.float32)
+        pert_ax = self.axes.get("protocol_param")
         eff = flitsim.simulate_grid(
-            keys, xf, yf, backlogs, n_flits=self.n_flits,
-            n_accesses=self.n_accesses, sim=sim,
-            device=self.device)[0].cpu().numpy()
-        # eff: [P, B, Mf] -> named dims, dropping absent axes
-        eff = eff.reshape(eff.shape[:2] + mix_shape)
-        dims: List[str] = ["protocol", "backlog"] + list(mix_dims)
+            keys, xf, yf, backlogs,
+            perturbations=self._protocol_perturbations(),
+            n_flits=self.n_flits, n_accesses=self.n_accesses, sim=sim,
+            device=self.device).cpu().numpy()
+        # eff: [Q, P, B, Mf] -> named dims, dropping absent axes
+        eff = eff.reshape(eff.shape[:3] + mix_shape)
+        dims: List[str] = ["protocol_param", "protocol", "backlog"]
         coords: List[Tuple] = [
+            pert_ax.labels if pert_ax is not None else ("baseline",),
             keys,
             bl_ax.labels if bl_ax is not None else (self.default_backlog,)]
+        dims += list(mix_dims)
         coords += [self.axes[d].labels for d in mix_dims]
+        if pert_ax is None:
+            eff = eff[0]
+            dims, coords = dims[1:], coords[1:]
         if bl_ax is None:
-            eff = eff[:, 0]
-            del dims[1], coords[1]
+            ax_b = dims.index("backlog")
+            eff = np.take(eff, 0, axis=ax_b)
+            del dims[ax_b], coords[ax_b]
         if not mix_dims:                     # placeholder 100R0W point
             eff = eff[..., 0]
         out: Dict[str, SpaceArray] = {}
@@ -918,20 +1098,8 @@ class DesignSpace:
             out["sim_efficiency"] = SpaceArray(
                 tuple(dims), tuple(coords), np.asarray(eff))
         if "sim_bandwidth_gbs" in wanted:
-            phy_ax = self.axes.get("phy")
-            phys = self._phys("sim_bandwidth_gbs")
-            raw = np.asarray([p.raw_bandwidth_gbs for p in phys],
-                             np.float32)
-            v = (np.expand_dims(eff, 1)
-                 * raw.reshape((len(raw),) + (1,) * (eff.ndim - 1)))
-            bdims = (dims[0], "phy") + tuple(dims[1:])
-            bcoords = (coords[0], tuple(p.name for p in phys)) \
-                + tuple(coords[1:])
-            if phy_ax is None:          # DesignSpace(phy=...): no phy dim
-                v = v[:, 0]
-                bdims = bdims[:1] + bdims[2:]
-                bcoords = bcoords[:1] + bcoords[2:]
-            out["sim_bandwidth_gbs"] = SpaceArray(bdims, bcoords, v)
+            out["sim_bandwidth_gbs"] = self._phy_dim(
+                dims, coords, eff, "sim_bandwidth_gbs")
         if "analytic_efficiency" in wanted:
             xt, yt = self._tensor(xf), self._tensor(yf)
             an = np.stack([flitsim.ANALYTIC[k].bw_eff(xt, yt).cpu().numpy()
@@ -956,39 +1124,38 @@ class DesignSpace:
                          for t in traces], np.float32)
         ys = 100.0 - xs
         bls = np.asarray([t.backlogs for t in traces], np.float32)
+        pert_ax = self.axes.get("protocol_param")
         eff = flitsim.simulate_trace_grid(
-            keys, xs, ys, bls, n_flits=self.n_flits,
-            n_accesses=self.n_accesses, sim=sim,
-            device=self.device)[0].cpu().numpy()        # [P, T, N]
+            keys, xs, ys, bls,
+            perturbations=self._protocol_perturbations(),
+            n_flits=self.n_flits, n_accesses=self.n_accesses, sim=sim,
+            device=self.device).cpu().numpy()           # [Q, P, T, N]
         # the duration-weighted aggregate is computed host-side in f64
         # with per-trace normalized weights, so a single-phase trace
         # (w == d/d == 1.0 exactly) stays bitwise equal to its static cell
         # through the f32 round trip
         d = np.asarray([t.durations for t in traces], np.float64)
         w = d / d.sum(axis=1, keepdims=True)                    # [T, N]
-        agg = np.einsum("ptn,tn->pt", eff.astype(np.float64),
+        agg = np.einsum("qptn,tn->qpt", eff.astype(np.float64),
                         w).astype(np.float32)
-        dims = ("protocol", "trace")
-        coords = (keys, tr_ax.labels)
+        dims: List[str] = ["protocol_param", "protocol", "trace"]
+        coords: List[Tuple] = [
+            pert_ax.labels if pert_ax is not None else ("baseline",),
+            keys, tr_ax.labels]
+        if pert_ax is None:
+            eff, agg = eff[0], agg[0]
+            dims, coords = dims[1:], coords[1:]
         out: Dict[str, SpaceArray] = {}
         if "trace_efficiency" in wanted:
-            out["trace_efficiency"] = SpaceArray(dims, coords, agg)
+            out["trace_efficiency"] = SpaceArray(tuple(dims), tuple(coords),
+                                                 agg)
         if "trace_phase_efficiency" in wanted:
             out["trace_phase_efficiency"] = SpaceArray(
-                dims + ("phase",), coords + (tuple(range(eff.shape[-1])),),
-                eff)
+                tuple(dims) + ("phase",),
+                tuple(coords) + (tuple(range(eff.shape[-1])),), eff)
         if "trace_bandwidth_gbs" in wanted:
-            phys = self._phys("trace_bandwidth_gbs")
-            raw = np.asarray([p.raw_bandwidth_gbs for p in phys],
-                             np.float32)
-            v = agg[:, None, :] * raw[None, :, None]          # [P, F, T]
-            if "phy" in self.axes:
-                out["trace_bandwidth_gbs"] = SpaceArray(
-                    ("protocol", "phy", "trace"),
-                    (keys, tuple(p.name for p in phys), tr_ax.labels), v)
-            else:                       # DesignSpace(phy=...): no phy dim
-                out["trace_bandwidth_gbs"] = SpaceArray(dims, coords,
-                                                        v[:, 0])
+            out["trace_bandwidth_gbs"] = self._phy_dim(
+                dims, coords, agg, "trace_bandwidth_gbs")
         return out
 
     def _eval_pipelining(self, wanted, sim: SimConfig

@@ -74,7 +74,7 @@ def build(cfg: ModelConfig) -> Model:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family (frontend "
             f"{cfg.frontend!r}) is not ported yet; the port runs the "
-            f"dense, hybrid and ssm families (ROADMAP.md queue 1 item 10: "
+            f"dense, hybrid and ssm families (ROADMAP.md queue 1 item 4: "
             f"moe, encdec and vision are still to be ported)")
     if "ssm" in cfg.layer_kinds() and cfg.ssm_groups != 1:
         raise NotImplementedError(

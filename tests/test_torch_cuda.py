@@ -735,3 +735,133 @@ def _to(tree, dev):
     if isinstance(tree, dict):
         return {k: _to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+def _cell_columns(dev, perts, fracs, backlogs):
+    """Per-cell operands of the fixed-horizon runner over every
+    (perturbation, protocol, backlog, fraction) cell, and the fixed
+    engine's perturbation-major stacks and mix tensors."""
+    ps = flitsim.SymmetricFlitParams.stack(
+        [p.perturbed(q) for q in perts
+         for p in flitsim.SYMMETRIC_PARAMS.values()], dev)
+    pa = flitsim.AsymmetricLaneParams.stack(
+        [p.perturbed(q) for q in perts
+         for p in flitsim.ASYMMETRIC_PARAMS.values()], dev)
+    x = torch.as_tensor(100.0 * np.asarray(fracs), dtype=torch.float32,
+                        device=dev)
+    b = torch.as_tensor(backlogs, dtype=torch.float32, device=dev)
+    srows = flitsim._sym_param_rows(ps, x, 100.0 - x, b)   # cells p, b, m
+    sym = (srows, srows[11:12].contiguous(), srows[12:13].contiguous(),
+           srows[13:14].contiguous())
+    arows = flitsim._asym_param_rows(pa, x, 100.0 - x)
+    asym = (arows, arows[6:7].contiguous(), arows[7:8].contiguous())
+    return sym, asym, ps, pa, x, b
+
+
+@pytest.mark.parametrize("cycles", [64, 66, 96, 2048])
+def test_cells_fixed_runner_equals_fixed_engine(dev, cycles):
+    """The per-cell fixed-horizon runner: ONE launch of each trace kernel
+    on per-cell columns of perturbed stacks equals the card's fixed engine
+    and the plain versions on the CPU bit for bit, at horizons that are
+    and are not multiples of four."""
+    perts = [{}, {"g_slots": 2.0, "read_lanes": 0.8}, {"credit_lines": 0.5}]
+    fracs = np.linspace(0.0, 1.0, 11)
+    sym, asym, ps, pa, x, b = _cell_columns(dev, perts, fracs,
+                                            [1.0, 2.0, 8.0, 64.0])
+    ops.reset_launches()
+    s_eff, a_eff = flitsim._run_cells_fixed(sym, asym, n_flits=cycles,
+                                            n_accesses=cycles)
+    assert ops.launches["symmetric_trace"] == 1
+    assert ops.launches["asymmetric_trace"] == 1
+    fixed_s = flitsim._symmetric_grid(ps, x, 100.0 - x, b, n_flits=cycles)
+    fixed_a = flitsim._asymmetric_grid(pa, x, 100.0 - x, n_accesses=cycles)
+    assert _same_bits(s_eff, fixed_s.reshape(-1))
+    assert _same_bits(a_eff, fixed_a.reshape(-1))
+    cpu_s, cpu_a = flitsim._run_cells_fixed(
+        tuple(t.cpu() for t in sym), tuple(t.cpu() for t in asym),
+        n_flits=cycles, n_accesses=cycles)
+    assert _same_bits(s_eff.cpu(), cpu_s)
+    assert _same_bits(a_eff.cpu(), cpu_a)
+
+
+def _stream_space(dev, **kw):
+    from repro_torch.core.ucie import UCIE_A_32G_55U, UCIE_S_32G
+    return DesignSpace([
+        axis("protocol_param", [{}, {"g_slots": 2.0}, {"write_lanes": 0.5}]),
+        axis("phy", [UCIE_S_32G, UCIE_A_32G_55U]),
+        axis("backlog", [2.0, 8.0, 64.0]),
+        axis("read_fraction", np.linspace(0.0, 1.0, 21)),
+    ], n_flits=64, n_accesses=64, device=dev, **kw)
+
+
+@pytest.mark.parametrize("prefetch", [1, 2, 3])
+def test_stream_on_card_equals_materialized(dev, prefetch):
+    """The streamed sim_bandwidth_gbs frontier on the card: winners, win
+    counts and bests equal the card's materialized fixed engine and the
+    CPU's stream; one launch of each trace kernel per dispatch."""
+    from repro_torch.core.space import StreamConfig
+    space = _stream_space(dev)
+    mat = space.evaluate(metrics=("sim_bandwidth_gbs",))["sim_bandwidth_gbs"]
+    ops.reset_launches()
+    sr = space.evaluate(metrics=("sim_bandwidth_gbs",),
+                        stream=StreamConfig(chunk_cells=40,
+                                            prefetch=prefetch))
+    assert ops.launches["symmetric_trace"] == sr.n_dispatches
+    assert ops.launches["asymmetric_trace"] == sr.n_dispatches
+    assert sr.n_dispatches == 5 and sr.peak_cells_per_chunk == 80
+    info = flitsim.last_run_info()["stream.sim"]
+    assert info["prefetch"] == prefetch and info["dispatches"] == 5
+    win = mat.argbest("protocol")
+    assert sr.winners.dims == win.dims
+    assert (sr.winners.values == win.values).all()
+    vals = np.asarray(win.values, dtype=object).ravel()
+    assert sr.win_counts == {k: int(np.sum(vals == k)) for k in sr.labels}
+    v = np.moveaxis(mat.values, 1, 0).reshape(len(sr.labels), -1)
+    assert sr.best_by_label == {k: float(v[i].max())
+                                for i, k in enumerate(sr.labels)}
+    cpu = _stream_space("cpu").evaluate(
+        metrics=("sim_bandwidth_gbs",), stream=StreamConfig(chunk_cells=40))
+    assert (sr.winners.values == cpu.winners.values).all()
+    assert sr.best_by_label == cpu.best_by_label
+
+
+def test_catalog_stream_on_card_equals_cpu(dev):
+    """The streamed analytic frontier with constraints on the card equals
+    the card's materialized frontier and the CPU's stream."""
+    from repro_torch.core.selector import SelectionConstraints
+    from repro_torch.core.space import StreamConfig
+    cons = SelectionConstraints(packaging="UCIe-A", max_power_w=40.0)
+    out = {}
+    for d in (dev, "cpu"):
+        space = DesignSpace([axis("read_fraction", np.linspace(0, 1, 21)),
+                             axis("shoreline_mm", [4.0, 8.0, 16.0])],
+                            device=d)
+        out[str(d)] = space.evaluate(metrics=("bandwidth_gbs",),
+                                     stream=StreamConfig(chunk_cells=8,
+                                                         constraints=cons))
+        if d == dev:
+            res = space.evaluate(metrics=("bandwidth_gbs", "power_w"))
+            ref = res.frontier("bandwidth_gbs", where=res.feasible(cons))
+            assert (out[str(d)].winners.values == ref.values).all()
+    card, cpu = out[str(dev)], out["cpu"]
+    assert (card.winners.values == cpu.winners.values).all()
+    assert card.win_counts == cpu.win_counts
+    np.testing.assert_allclose(list(card.best_by_label.values()),
+                               list(cpu.best_by_label.values()), rtol=0,
+                               atol=1e-6)
+
+
+def test_sweep_perturbed_adaptive_on_card(dev):
+    """``sweep_perturbed`` on the card: ADAPTIVE_SIM within 1e-3 of the
+    fixed engine, the labels and numbers of the CPU's run (atol 1e-6)."""
+    perts = [{}, {"credit_lines": 0.5}, {"g_slots": 0.8, "read_lanes": 0.8}]
+    kw = dict(mixes=[(2, 1), (1, 1), (1, 3)], backlogs=[2.0, 64.0])
+    card = flitsim.sweep_perturbed(perts, sim=ADAPTIVE_SIM, device=dev,
+                                   **kw)["sim_efficiency"]
+    fixed = flitsim.sweep_perturbed(perts, device=dev, **kw)[
+        "sim_efficiency"]
+    cpu = flitsim.sweep_perturbed(perts, sim=ADAPTIVE_SIM, device="cpu",
+                                  **kw)["sim_efficiency"]
+    assert card.coords == cpu.coords
+    assert np.max(np.abs(card.values - fixed.values)) <= 1e-3
+    assert np.max(np.abs(card.values - cpu.values)) <= 1e-6

@@ -48,7 +48,8 @@ def test_port_has_modules():
                  "configs/mamba2_2_7b.py", "models/ssm.py",
                  "kernels/ssd_scan/ref.py", "kernels/ssd_scan/kernel.py",
                  "kernels/ssd_scan/ops.py", "traces/trace.py",
-                 "traces/frontier.py", "traces/recorder.py"):
+                 "traces/frontier.py", "traces/recorder.py",
+                 "core/streaming.py"):
         assert want in names
 
 
@@ -103,6 +104,10 @@ def _entry_points():
         "serving_frontier": lambda: space.DesignSpace.serving_frontier(),
         "simulate_trace_grid": lambda: flitsim.simulate_trace_grid(
             ["chi"], [[1.0]], [[1.0]], [[4.0]]),
+        "sweep_perturbed": lambda: flitsim.sweep_perturbed([{}]),
+        "stream_evaluate": lambda: space.DesignSpace(
+            [space.axis("read_fraction", [0.5])]).evaluate(
+                metrics=("bandwidth_gbs",), stream=space.StreamConfig()),
         "mix_grid": lambda: traffic.mix_grid(5),
         "rank": lambda: selector.rank(traffic.TrafficMix(2, 1)),
         "best": lambda: selector.best(traffic.TrafficMix(2, 1)),
@@ -133,6 +138,7 @@ def _entry_points():
     "simulate_grid", "sweep", "DesignSpace", "joint_frontier",
     "build_report", "bridge_design_space", "bridge_mode", "explorer_cli",
     "explorer_cli_serving", "serving_frontier", "simulate_trace_grid",
+    "sweep_perturbed", "stream_evaluate",
     "mix_grid", "rank", "best", "sweep_mode", "explorer_cli_sweep",
     "quickstart", "quickstart_cli", "simulate_lpddr6_pipelining",
     "sweep_pipelining", "simulators", "pack", "model_params",

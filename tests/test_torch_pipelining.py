@@ -218,7 +218,7 @@ def test_axis_labels_and_lookup():
     with pytest.raises(KeyError):
         ta.sel(k=3)
     for name in ("k", "ucie_line_ui", "device_line_ui"):
-        assert name in t_space.PORTED_AXES
+        assert t_space.axis(name, [1]).name == name    # ported: it builds
     assert t_space.PIPELINE_METRICS == j_space.PIPELINE_METRICS
     assert t_space.DesignSpace([t_space.axis("k", [1])],
                                device=CPU).n_lines == 512

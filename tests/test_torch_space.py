@@ -102,8 +102,11 @@ def test_axis_validation():
     with pytest.raises(ValueError, match="mutually exclusive"):
         t_space.AxisSet(t_space.axis("mix", [(1, 1)]),
                         t_space.axis("read_fraction", [0.5]))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        t_space.axis("protocol_param", [{}])
+    with pytest.raises(ValueError, match="unknown perturbation"):
+        t_space.DesignSpace([t_space.axis("protocol_param",
+                                          [{"warp_drive": 2.0}]),
+                             t_space.axis("mix", [(1, 1)])],
+                            device=CPU).evaluate(metrics=("sim_efficiency",))
     with pytest.raises(ValueError, match="TrafficTrace"):
         t_space.axis("trace", [1, 2])
     with pytest.raises(ValueError, match="OWN_MIX"):
