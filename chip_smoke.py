@@ -99,6 +99,28 @@ on failure:
       on the CPU, prompts of 40 and 300 tokens, prefill and teacher-forced
       decode logits within the bf16 tolerance and greedy tokens equal
       except at near ties;
+   h. the moe, vision and enc-dec families (``flash_attention_fwd``):
+      olmoe-1b-7b at full width and depth (16 layers, 6,919,096,320
+      parameters, 6,919,620,608 with the padded vocabulary, 64 experts
+      top-8): the launcher (8 requests of 4-11
+      tokens, 4 slots, 16 new tokens) and an engine run with 4 prompts of
+      2000-2400 tokens (``max_len`` 2560, 8 new tokens), 16
+      ``flash_attention_fwd`` launches per prefill and none per decode
+      step, the share of (token, choice) pairs each prefill's capacity
+      drops logged; its long prompts decoded again one request at a time
+      with capacity factor 8 (no drops: the reference's own test's factor)
+      against a longer prefill; internvl2-1b (256 patch embeddings + 40
+      tokens, 24 launches) and seamless-m4t-large-v2 (1000 frames + 40
+      tokens, 72 launches: encoder, decoder and cross attention) at full
+      depth through ``Model``, a prefill and 8 decode steps each; then the
+      four models at full width on the card against the CPU
+      (olmoe-1b-7b 2 layers, llama4-scout-17b-a16e 1 layer, internvl2-1b 2
+      layers with 256 patch embeddings, seamless-m4t-large-v2 2 + 2 layers
+      with 37 and 1000 frames), each MoE layer's expert choices recorded
+      on both: the smallest k-th/(k+1)-th probability gap and the tokens
+      whose experts differ logged per layer; a row past the bf16 bound is
+      held again with the CPU on the card's experts, where they differ
+      only at near ties;
 
    The RG-LRU scan is held bitwise against its plain version in phase 3
    (it keeps the plain version's order) at nine cases (the serving
@@ -120,9 +142,13 @@ on failure:
    chunk to chunk counts, and some from a given initial state, four rows
    of 300 steps with both), with ``scaled_dot_product_attention``
    timed beside the attention kernel as the library yardstick (not used
-   by the port; with the same boolean mask, and where the mask is plain
-   causal also ``is_causal=True`` on the flash backend, the faster of the
-   two taken); the attention kernel's five bf16 serving shapes timed with
+   by the port; with the same boolean mask, where it hides nothing also
+   with none, and where the mask is plain causal also ``is_causal=True``
+   on the flash backend, the fastest taken); the attention kernel's bf16
+   serving shapes (those of the twelfth slice's families too: olmoe-1b-7b
+   and llama4-scout at hd 128, internvl2-1b's 256 patches + text, and
+   seamless-m4t-large-v2's non-causal encoder and cross attention, Sq !=
+   Skv, at 37 and 1000 frames) timed with
    their share of the bound and TFLOP/s, and ptxas's registers and spills
    of every flash instance logged (a spill in the bf16 tensor-core kernel
    fails the run);
@@ -182,6 +208,9 @@ from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.launch import serve as serve_launcher  # noqa: E402
 from repro_torch.models import build as build_model  # noqa: E402
 from repro_torch.models import layers as model_layers  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import routes  # noqa: E402
+from repro_torch.models.routes import Routes  # noqa: E402
 from repro_torch.serve import Request, ServingEngine  # noqa: E402
 from repro_torch.traces import (  # noqa: E402
     DEFAULT_MODELS, DEFAULT_QPS, ModelTrafficSpec, TrafficTrace, pad_traces,
@@ -1602,6 +1631,16 @@ FA_SERVING = {
     "smollm-360m 512 tokens": (1, 5, 3, 512, 512, 64, True, 0, 0),
     "recurrentgemma-2b continuation": (1, 1, 10, 256, 2304, 256, True, 2048,
                                        2048),
+    "olmoe-1b-7b launcher prompt": (1, 16, 1, 7, 7, 128, True, 0, 0),
+    "olmoe-1b-7b long prompt": (1, 16, 1, 2300, 2300, 128, True, 0, 0),
+    "llama4-scout 300 tokens": (1, 8, 5, 300, 300, 128, True, 0, 0),
+    "internvl2-1b 256 + 40": (1, 2, 7, 296, 296, 64, True, 0, 0),
+    "internvl2-1b 256 + 300": (1, 2, 7, 556, 556, 64, True, 0, 0),
+    "seamless encoder 37": (1, 16, 1, 37, 37, 64, False, 0, 0),
+    "seamless encoder 1000": (1, 16, 1, 1000, 1000, 64, False, 0, 0),
+    "seamless cross 40 x 37": (1, 16, 1, 40, 37, 64, False, 0, 0),
+    "seamless cross 40 x 1000": (1, 16, 1, 40, 1000, 64, False, 0, 0),
+    "seamless cross 300 x 37": (1, 16, 1, 300, 37, 64, False, 0, 0),
 }
 FA_CASES.update({label + ("" if dt == "bf16" else " f32"): case + (dt,)
                  for dt in ("bf16", "f32")
@@ -1616,7 +1655,10 @@ FA_TOL = {"f32": (3e-5, 1e-4), "bf16": (4e-3, 2.0 ** -7)}
 FA_PATH = "recurrentgemma-2b launcher prompt"
 FA_LARGEST = "recurrentgemma-2b long prompt"
 FA_TIMED = (FA_PATH, "smollm-360m launcher prompt", FA_LARGEST,
-            "smollm-360m 512 tokens", "recurrentgemma-2b continuation")
+            "smollm-360m 512 tokens", "recurrentgemma-2b continuation",
+            "olmoe-1b-7b launcher prompt", "olmoe-1b-7b long prompt",
+            "llama4-scout 300 tokens", "internvl2-1b 256 + 300",
+            "seamless encoder 1000", "seamless cross 40 x 1000")
 #: RG-LRU scan shapes [B, S, C], each held bitwise: recurrentgemma-2b's
 #: launcher prompt and long prompt, the long prompt plus a ragged tile,
 #: four rows of 4096, C % 4 != 0 (the cp.async copies), C below one
@@ -1644,7 +1686,14 @@ PER_PREFILL = {"recurrentgemma-2b": {"flash_attention_fwd": 8,
                "smollm-360m": {"flash_attention_fwd": 32, "rglru_scan": 0,
                                "ssd_scan": 0},
                "mamba2-2.7b": {"flash_attention_fwd": 0, "rglru_scan": 0,
-                               "ssd_scan": 64}}
+                               "ssd_scan": 64},
+               "olmoe-1b-7b": {"flash_attention_fwd": 16, "rglru_scan": 0,
+                               "ssd_scan": 0},
+               "internvl2-1b": {"flash_attention_fwd": 24, "rglru_scan": 0,
+                                "ssd_scan": 0},
+               # 24 encoder, 24 decoder and 24 cross attentions
+               "seamless-m4t-large-v2": {"flash_attention_fwd": 72,
+                                         "rglru_scan": 0, "ssd_scan": 0}}
 #: bf16 tolerance of the card-vs-CPU model comparison: TOL_EPS bf16
 #: epsilons (2^-7) of the largest CPU logit (tests/test_torch_models.py)
 BF16_EPS = 2.0 ** -7
@@ -1655,6 +1704,14 @@ TOL_EPS = 8
 #: the bf16 bound, f32 compute does not; a fault in the carried states
 #: would move the logits by their own size
 F32_REL = 1e-3
+#: the moe family served at full width and depth (16 layers, 64 experts,
+#: top-8): the config's count over its 50,304-token vocabulary, and the
+#: schema's with the embedding tables padded to 50,432 rows (the
+#: reference's counts both); seamless-m4t-large-v2's frames in the
+#: card-vs-CPU check
+OLMOE = "olmoe-1b-7b"
+OLMOE_PARAMS = (6_919_096_320, 6_919_620_608)
+ENC_FRAMES = (37, 1000)
 
 
 def fa_inputs(case, gen):
@@ -1695,8 +1752,9 @@ def plain_causal(case) -> bool:
 def sdpa_ms(case, q, k, v, reps) -> dict:
     """The library yardstick: ``scaled_dot_product_attention`` on the same
     inputs with K/V expanded to the G heads and the same boolean mask; for
-    a plain causal mask also ``is_causal=True`` on the flash backend
-    (timed only; the port never calls it).  ms of each form."""
+    a mask that hides nothing (non-causal) also with no mask, and for a
+    plain causal mask also ``is_causal=True`` on the flash backend (timed
+    only; the port never calls it).  ms of each form."""
     b, kh, g, sq, skv, hd, causal, window, off, _ = case
     qh = q.reshape(b, kh * g, sq, hd)
     kx = k[:, :, None].expand(b, kh, g, skv, hd).reshape(b, kh * g, skv, hd)
@@ -1709,6 +1767,11 @@ def sdpa_ms(case, q, k, v, reps) -> dict:
     close("scaled_dot_product_attention vs plain", got.float().cpu(),
           want.float().cpu(), 3e-2)
     out = {"masked": time_ms(lambda: sdpa(qh, kx, vx, attn_mask=mask), reps)}
+    if bool(mask.all()):
+        got = sdpa(qh, kx, vx).reshape(want.shape)
+        close("scaled_dot_product_attention (no mask) vs plain",
+              got.float().cpu(), want.float().cpu(), 3e-2)
+        out["no_mask"] = time_ms(lambda: sdpa(qh, kx, vx), reps)
     if plain_causal(case):
         from torch.nn.attention import SDPBackend, sdpa_kernel
         with sdpa_kernel(SDPBackend.FLASH_ATTENTION):
@@ -2394,45 +2457,384 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def card_vs_cpu(arch, layers):
-    """Full width, ``layers`` layers, weights drawn on the CPU from seed 0
-    and copied to the card: prefill and four teacher-forced decode steps
-    on both devices, for prompts of 40 and 300 tokens."""
+def _merge_routes(reports: list, layers: int) -> list:
+    """Per layer over all calls (:func:`routes.parted`'s reports): the
+    smallest k-th/(k+1)-th gap, the tokens whose expert set or only its
+    order differs, how many of them follow the router's input, the
+    farthest apart the others' experts are on one input and the largest
+    difference between the two routers on one input (f32 ulps)."""
+    out = []
+    for i in range(layers):
+        rs = reports[i::layers]
+        out.append(dict(min_gap=min(r["min_gap"] for r in rs),
+                        **{key: sum(r[key] for r in rs)
+                           for key in ("sets", "order", "by_input")},
+                        **{key: max(r[key] for r in rs)
+                           for key in ("ulps", "router_ulps")}))
+    return out
+
+
+def _routes_line(merged: list) -> str:
+    return "; ".join(
+        f"L{i} {r['min_gap']:.3g}, {r['sets']} / {r['order']}, "
+        f"{r['by_input']}, {r['ulps']:.3g}, {r['router_ulps']:.3g}"
+        for i, r in enumerate(merged))
+
+
+ROUTES_KEY = ("smallest k-th/(k+1)-th gap, tokens whose expert set / only "
+              "order differs, of them following the router input (one "
+              "side's router on the other's input picks the other's "
+              "experts), f32 ulps of the k-th probability between the "
+              "rest's experts on one input (at most "
+              f"{routes.TIE_ULPS}), largest difference between the two "
+              "routers on one input in f32 ulps")
+
+
+def hold_routed(name, row, want, diff, rerun):
+    """Hold logit row ``row`` within the bf16 bound of ``want``.  For an
+    moe model (``diff``: :func:`routes.parted`'s reports of the run that
+    gave ``want`` against ``row``'s, which has failed unless every token
+    whose expert choices differ follows the router's input) one such
+    token can move a row by a whole expert's share: past the bound the
+    choices must differ, and ``rerun()``, ``want``'s side again on
+    ``row``'s experts, is held instead.  Returns (the share held, the
+    share before the rerun or None)."""
+    share = within(name, row, want, hold=diff is None)
+    if share <= 1.0:
+        return share, None
+    if not any(r["sets"] or r["order"] for r in diff):
+        raise AssertionError(f"{name}: {share:.2f} of the bf16 bound, "
+                             f"routes {diff}")
+    forced = within(name + " (on the same experts)", row, rerun())
+    log(f"main path: {name}: an expert choice that follows the router's "
+        f"input alone moves the logits to {share:.2f} of the bf16 bound; "
+        f"on the same experts they are within {forced:.2f} of it")
+    return forced, share
+
+
+def card_vs_cpu(arch, layers, cases=((40, {}), (300, {}))):
+    """Full width, ``layers`` layers (of the encoder and of the decoder of
+    an encoder-decoder model), weights drawn on the card from seed 0 and
+    copied to the CPU: prefill and four teacher-forced decode steps on
+    both devices, for each case of (prompt tokens, extra prefill inputs:
+    ``{"patch_embeds" or "frames": positions}``, drawn from seed 1).
+
+    An moe model's router inputs and expert choices are recorded on both
+    devices; a token whose k-th and (k+1)-th probabilities nearly tie may
+    take another expert on each (the router's input is bf16, rounded in
+    other orders).  Every such token must follow the router's input: the
+    CPU's router on the card's input picks the card's experts
+    (:func:`routes.parted`).  Per layer the smallest such gap and the
+    tokens whose expert set (or only their order) differs are logged, and
+    a row past the bound is held with the CPU on the card's experts
+    (:func:`hold_routed`); the unforced share is reported as a measured
+    gap."""
     import dataclasses
     cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    if cfg.is_encdec:
+        cfg = dataclasses.replace(cfg, encoder_layers=layers)
     model = build_model(cfg)
-    cpu_params = model.init(torch.Generator().manual_seed(0))
-    params = _to(cpu_params, DEV)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    cpu_params = _to(params, torch.device("cpu"))
+    gen = torch.Generator().manual_seed(1)
     rng = np.random.default_rng(1)
-    worst, ties, steps = 0.0, [], 0
+    worst, ties, steps, reports, gaps = 0.0, [], 0, [], []
+
+    def both(name, run):
+        """One prefill or decode step on the card and on the CPU; the
+        logit rows held."""
+        cpu = torch.device("cpu")
+        diff, on_card = None, Routes()
+        if not cfg.is_moe:
+            (lg_g, c_g), (lg_c, c_c) = run(DEV), run(cpu)
+        else:
+            with on_card:
+                lg_g, c_g = run(DEV)
+            with Routes() as on_cpu:
+                lg_c, c_c = run(cpu)
+            diff = routes.parted(on_cpu, on_card, cfg, name)
+            reports.extend(diff)
+        out = {}
+
+        def rerun():
+            with Routes(forced=on_card.own):
+                out["c"] = run(cpu)
+            return real_vocab(name, out["c"][0][0], cfg.vocab_size)
+        share, unforced = hold_routed(
+            name, real_vocab(name, lg_g[0], cfg.vocab_size),
+            real_vocab(name, lg_c[0], cfg.vocab_size), diff, rerun)
+        if unforced is not None:
+            gaps.append((name, unforced, share))
+            lg_c, c_c = out["c"]
+        return lg_g, c_g, lg_c, c_c, share
+
     t0 = time.perf_counter()
-    for n in (40, 300):
+    for n, extra in cases:
         toks = torch.as_tensor(rng.integers(0, cfg.vocab_size, (1, n)))
-        max_len = max(cfg.window, n + 8)
-        lg_c, c_c = model.prefill(cpu_params, toks, pad_cache_to=max_len)
-        lg_g, c_g = model.prefill(params, toks.to(DEV), pad_cache_to=max_len)
+        inputs = {key: torch.randn((1, m, cfg.d_model), generator=gen)
+                  for key, m in extra.items()}
+        offset = extra.get("patch_embeds", 0)
+        max_len = max(cfg.window, offset + n + 8)
+        caches = {}
+
+        def prefill(dev):
+            p = params if dev == DEV else cpu_params
+            return model.prefill(p, toks.to(dev), pad_cache_to=max_len,
+                                 **{key: v.to(dev)
+                                    for key, v in inputs.items()})
+        what = f"{arch} {layers} layers, prompt {n}" + "".join(
+            f", {m} {key}" for key, m in extra.items())
+        lg_g, caches[DEV], lg_c, caches["cpu"], share = both(
+            f"{what}, prefill", prefill)
         for step in range(5):
-            name = f"{arch} {layers} layers, prompt {n}, step {step}"
-            row_g = real_vocab(name, lg_g[0], cfg.vocab_size)
-            row_c = real_vocab(name, lg_c[0], cfg.vocab_size)
-            worst = max(worst, within(name, row_g, row_c))
-            if not same_token(name, int(torch.argmax(row_g)), row_c):
+            name = f"{what}, step {step}"
+            worst = max(worst, share)
+            if not same_token(name, int(torch.argmax(real_vocab(
+                    name, lg_g[0], cfg.vocab_size))),
+                    real_vocab(name, lg_c[0], cfg.vocab_size)):
                 ties.append((n, step))
             steps += 1
             if step == 4:
                 break
             tok = torch.argmax(lg_c[0]).reshape(1, 1)
-            pos = torch.tensor([[n + step]])
-            lg_c, c_c = model.decode_step(cpu_params, tok, c_c, pos)
-            lg_g, c_g = model.decode_step(params, tok.to(DEV), c_g,
-                                          pos.to(DEV))
+            pos = torch.tensor([[offset + n + step]])
+
+            def decode(dev):
+                p = params if dev == DEV else cpu_params
+                c = caches[DEV if dev == DEV else "cpu"]
+                return model.decode_step(p, tok.to(dev), c, pos.to(dev))
+            lg_g, caches[DEV], lg_c, caches["cpu"], share = both(
+                f"{what}, step {step + 1}", decode)
     wall = time.perf_counter() - t0
+    out = dict(worst_share_of_tol=worst, near_ties=ties, steps=steps)
+    route_log = ""
+    if cfg.is_moe:
+        out["routes"] = _merge_routes(reports, layers)
+        out["measured_gaps"] = gaps
+        route_log = f"; router per layer, CPU against card ({ROUTES_KEY}): " \
+            + _routes_line(out["routes"])
     log(f"main path: {arch} full width, {layers} layers, card vs CPU: "
-        f"{steps} logit rows (prefill + 4 decode steps for prompts of 40 and "
-        f"300 tokens) within {TOL_EPS} bf16 epsilons of the CPU's largest "
+        f"{steps} logit rows (prefill + 4 decode steps for prompts of "
+        f"{[n for n, _ in cases]} tokens"
+        + "".join(f", {extra}" for _, extra in cases if extra)
+        + f") within {TOL_EPS} bf16 epsilons of the CPU's largest "
         f"logit (worst {worst:.2f} of the tolerance); greedy tokens equal"
-        f"{'' if not ties else f' except near ties at {ties}'}; {wall:.1f} s")
-    return dict(worst_share_of_tol=worst, near_ties=ties, steps=steps)
+        f"{'' if not ties else f' except near ties at {ties}'}; "
+        f"{wall:.1f} s{route_log}")
+    return out
+
+
+def dropped_at_prefill(model, params, prompts) -> list:
+    """The largest share of (token, choice) pairs any layer drops at each
+    prompt's prefill (the served capacity factor), from the recorded
+    expert choices."""
+    cfg, out = model.cfg, []
+    for p in prompts:
+        toks = torch.as_tensor(np.asarray(p, np.int64), device=DEV)[None]
+        with Routes() as r:
+            model.prefill(params, toks)
+        cap = moe_mod.capacity(toks.shape[1], cfg)
+        out.append(max(float((~moe_mod.dispatch(
+            e, cfg.num_experts, cap)[1]).float().mean()) for e in r.own))
+    return out
+
+
+def moe_decode_check(name, model, params, done) -> dict:
+    """olmoe's long prompts again, one at a time, with capacity factor 8
+    (no pair is dropped at any batch, as the reference's own test sets it:
+    at the served 1.25 a long prefill drops pairs that a decode step never
+    does): prefill, then the engine's tokens decoded against the KV caches
+    (fed, not held: the engine chose them at 1.25), and the last decode's
+    logits against a prefill of the prompt and the first 7 tokens, within
+    the bf16 bound.  Both orders' router inputs and expert choices are
+    recorded; where the longer prefill's choices differ from the
+    decode's, they must follow the router's input
+    (:func:`routes.parted`), and the longer prefill runs again on the
+    decode's choices."""
+    layers, vocab = model.cfg.num_layers, model.cfg.vocab_size
+    worst, reports, gaps = 0.0, [], []
+    for req in done:
+        toks = torch.as_tensor(np.asarray(req.prompt, np.int64), device=DEV)
+        n = toks.shape[0]
+        with Routes() as stepped:
+            logits, caches = model.prefill(params, toks[None],
+                                           pad_cache_to=2560)
+            for j, tok in enumerate(req.generated[:-1]):
+                logits, caches = model.decode_step(
+                    params, torch.tensor([[tok]], device=DEV), caches,
+                    torch.tensor([[n + j]], device=DEV))
+        longer = torch.cat([toks, torch.as_tensor(
+            req.generated[:-1], device=DEV)])[None]
+        with Routes() as whole:
+            want, _ = model.prefill(params, longer)
+        seq = stepped.per_layer(layers)
+        what = f"{name} check rid {req.rid}"
+        diff = routes.parted(whole, seq, model.cfg, what)
+        reports.extend(diff)
+
+        def rerun():
+            with Routes(forced=seq.own):
+                return real_vocab(what, model.prefill(params, longer)[0],
+                                  vocab)
+        share, unforced = hold_routed(what, real_vocab(what, logits, vocab),
+                                      real_vocab(what, want, vocab), diff,
+                                      rerun)
+        if unforced is not None:
+            gaps.append((req.rid, unforced, share))
+        worst = max(worst, share)
+    merged = _merge_routes(reports, layers)
+    log(f"main path: {name}: with capacity factor 8, decode against the KV "
+        f"caches gives, after 7 tokens, the logits of the longer prefill: "
+        f"worst {worst:.2f} of the bf16 bound ({TOL_EPS} epsilons)"
+        + (f"; expert choices that follow the router's input alone moved "
+           f"{gaps} (rid, share, share on the decode's experts)"
+           if gaps else "")
+        + f"; router per layer, longer prefill against decode ({ROUTES_KEY}): "
+        + _routes_line(merged))
+    return dict(worst_share_of_tol=worst, measured_gaps=gaps,
+                routes=merged)
+
+
+def model_run(arch, n_text, extra, steps=8) -> dict:
+    """``arch`` at full width and depth through ``Model``: one prefill of
+    ``n_text`` tokens with the extra inputs (patch embeddings or frames,
+    ``{name: positions}``), then ``steps`` greedy decode steps; launches
+    asserted (``PER_PREFILL`` for the prefill, none for a step); wall,
+    tokens/s and peak memory logged."""
+    cfg = get_config(arch)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    gen = torch.Generator(device=DEV).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (1, n_text), generator=gen,
+                         device=DEV)
+    inputs = {key: torch.randn((1, m, cfg.d_model), generator=gen,
+                               device=DEV) for key, m in extra.items()}
+    offset = extra.get("patch_embeds", 0)
+    max_len = offset + n_text + steps + 1
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, caches = model.prefill(params, toks, pad_cache_to=max_len,
+                                   **inputs)
+    generated = [int(torch.argmax(real_vocab(arch, logits[0],
+                                             cfg.vocab_size)))]
+    prefill_s = time.perf_counter() - t0
+    at_prefill = read_counts()
+    for j in range(steps):
+        logits, caches = model.decode_step(
+            params, torch.tensor([[generated[-1]]], device=DEV), caches,
+            torch.tensor([[offset + n_text + j]], device=DEV))
+        generated.append(int(torch.argmax(real_vocab(arch, logits[0],
+                                                     cfg.vocab_size))))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = PER_PREFILL[arch]
+    got = {key: at_prefill[key] for key in want}
+    if got != want or counts != at_prefill:
+        raise AssertionError(f"{arch}: launches {got} at the prefill (want "
+                             f"{want}), {counts} after {steps} decode "
+                             f"steps (want none more)")
+    if not torch.isfinite(logits.float()).all() or \
+            logits.shape != (1, cfg.padded_vocab):
+        raise AssertionError(f"{arch}: logits {tuple(logits.shape)} not "
+                             f"finite")
+    tokens = len(generated)
+    log(f"main path: {arch} full width and depth through Model: prefill "
+        f"of {n_text} tokens" + "".join(f" + {m} {key}"
+                                        for key, m in extra.items())
+        + f" ({prefill_s:.3f} s) and {steps} decode steps: {tokens} tokens "
+        f"in {wall:.3f} s ({tokens / wall:.1f} tok/s), peak memory "
+        f"{peak:.2f} GiB; launches {got} at the prefill, none in decode")
+    return dict(wall_s=wall, prefill_s=prefill_s, tokens=tokens,
+                tok_per_s=tokens / wall, peak_gib=peak, launches=got,
+                params=model.param_count())
+
+
+def phase_new_families() -> dict:
+    """The moe, vision and enc-dec families: olmoe-1b-7b served at full
+    width and depth (the launcher, a long-prompt engine run, its decode
+    check with capacity factor 8); internvl2-1b and seamless-m4t-large-v2
+    at full depth through ``Model``; the four models at full width and
+    reduced depth on the card against the CPU, with the router's near ties
+    counted."""
+    import dataclasses
+    runs = {}
+    cfg = get_config(OLMOE)
+    model = build_model(cfg)
+    if cfg.num_layers != 16 or \
+            (cfg.param_count(), model.param_count()) != OLMOE_PARAMS:
+        raise AssertionError(f"{OLMOE}: {cfg.num_layers} layers, "
+                             f"{cfg.param_count():,} parameters "
+                             f"({model.param_count():,} padded)")
+    out = {}
+    argv = ["--arch", OLMOE, "--requests", "8", "--batch-slots", "4",
+            "--max-new-tokens", "16"]
+    log(f"main path: launcher {' '.join(argv)}")
+    runs["olmoe-1b-7b launcher"] = serving_run(
+        "olmoe-1b-7b launcher",
+        lambda: out.setdefault("o", serve_launcher.main(argv))["requests"],
+        OLMOE, 8)
+    check_requests("olmoe-1b-7b launcher", out["o"]["requests"], 8, 16,
+                   cfg.vocab_size)
+    runs["olmoe-1b-7b launcher"]["launcher_s"] = out["o"]["seconds"]
+    del out
+    torch.cuda.empty_cache()
+
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    rng = np.random.default_rng(0)
+    lens = [int(n) for n in rng.integers(2000, 2401, 4)]
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in lens]
+
+    def long_prompts():
+        eng = ServingEngine(model, params, batch_slots=4, max_len=2560,
+                            device=DEV)
+        for i, p in enumerate(prompts):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=8))
+        return eng.run_until_drained()
+    log(f"main path: {OLMOE} engine, prompts of {lens} tokens, max_len "
+        f"2560, capacity factor {cfg.moe_capacity_factor}")
+    done = []
+    runs["olmoe-1b-7b long prompts"] = serving_run(
+        "olmoe-1b-7b long prompts", lambda: done.extend(long_prompts())
+        or done, OLMOE, 4)
+    check_requests("olmoe-1b-7b long prompts", done, 4, 8, cfg.vocab_size)
+    rec = runs["olmoe-1b-7b long prompts"]
+    rec["prompt_lens"] = lens
+    rec["capacity"] = [moe_mod.capacity(n, cfg) for n in lens]
+    rec["dropped"] = dropped_at_prefill(model, params, prompts)
+    log(f"main path: {OLMOE} long prompts: capacity {rec['capacity']} "
+        f"slots an expert; each prefill's most-dropping layer drops "
+        f"{[round(d, 4) for d in rec['dropped']]} of its (token, choice) "
+        f"pairs")
+    roomy = build_model(dataclasses.replace(cfg, moe_capacity_factor=8.0))
+    rec["decode_check"] = moe_decode_check("olmoe-1b-7b long prompts",
+                                           roomy, params, done)
+    del model, roomy, params
+    torch.cuda.empty_cache()
+
+    runs["internvl2-1b full depth"] = model_run(
+        "internvl2-1b", 40, {"patch_embeds": 256})
+    torch.cuda.empty_cache()
+    runs["seamless-m4t-large-v2 full depth"] = model_run(
+        "seamless-m4t-large-v2", 40, {"frames": 1000})
+    torch.cuda.empty_cache()
+
+    runs["card vs CPU new families"] = {
+        OLMOE: card_vs_cpu(OLMOE, 2),
+        "llama4-scout-17b-a16e": card_vs_cpu("llama4-scout-17b-a16e", 1),
+        "internvl2-1b": card_vs_cpu(
+            "internvl2-1b", 2, cases=((40, {"patch_embeds": 256}),
+                                      (300, {"patch_embeds": 256}))),
+        "seamless-m4t-large-v2": card_vs_cpu(
+            "seamless-m4t-large-v2", 2,
+            cases=tuple((40, {"frames": se}) for se in ENC_FRAMES)),
+    }
+    torch.cuda.empty_cache()
+    return runs
 
 
 def lm_kernel_records(lm_records, serving):
@@ -2534,6 +2936,7 @@ def main() -> None:
     counts = phase_main_path()
     stream = phase_streaming()
     serving = phase_serving()
+    serving.update(phase_new_families())
 
     big = records["2^20 cells"]
     #: the main-path run each kernel's launch count is read from

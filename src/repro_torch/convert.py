@@ -91,11 +91,16 @@ def _unstack(node, i: int):
     return np.asarray(node)[i]
 
 
-def _per_layer(cfg, blocks) -> Dict[str, Any]:
-    """The reference's ``blocks`` (one entry per layer, or one stack of
-    ``[L, ...]`` leaves for a scanned homogeneous model, which for ssm
-    decode caches is a ``(conv, ssm)`` tuple) as one entry per layer."""
-    names = [f"layer_{i:02d}" for i in range(cfg.num_layers)]
+def _per_layer(n: int, blocks) -> Dict[str, Any]:
+    """The reference's ``blocks`` of ``n`` layers (one entry per layer, or
+    one stack of ``[L, ...]`` leaves for a scanned homogeneous stack) as
+    one entry per layer, ``layer_XX``.  A stack's leaves keep their nesting:
+    a dense or moe block's parameters (``attn``, ``mlp`` or ``moe`` with
+    ``router``, ``wi``, ``wg``, ``wo``), an encoder or decoder block's (the
+    latter with ``lnx`` and ``xattn``), attention caches ``{"k", "v"}``,
+    ssm decode caches ``(conv, ssm)`` and enc-dec caches ``{"self": {"k",
+    "v"}, "cross": {"k", "v"}}``."""
+    names = [f"layer_{i:02d}" for i in range(n)]
     if isinstance(blocks, Mapping) and set(blocks) == set(names):
         return dict(blocks)
     return {name: _unstack(blocks, i) for i, name in enumerate(names)}
@@ -103,11 +108,19 @@ def _per_layer(cfg, blocks) -> Dict[str, Any]:
 
 def model_params(cfg, tree, device=None) -> Dict[str, Any]:
     """The reference's ``model.init(...)`` parameters (a nested dict of
-    numpy arrays) as the port's: the same leaves, one ``blocks`` entry
-    per layer, on ``device``."""
+    numpy arrays) as the port's: the same leaves (``frontend.proj`` of a
+    vision model, ``frontend.adapter`` of an encoder-decoder), one
+    ``blocks`` entry per layer (an encoder-decoder's ``encoder.blocks``
+    and ``decoder.blocks`` each), on ``device``."""
     dev = device_mod.resolve(device)
-    out = {k: v for k, v in tree.items() if k != "blocks"}
-    out["blocks"] = _per_layer(cfg, tree["blocks"])
+    out = dict(tree)
+    if cfg.is_encdec:
+        out["encoder"] = dict(tree["encoder"], blocks=_per_layer(
+            cfg.encoder_layers, tree["encoder"]["blocks"]))
+        out["decoder"] = dict(tree["decoder"], blocks=_per_layer(
+            cfg.num_layers, tree["decoder"]["blocks"]))
+    else:
+        out["blocks"] = _per_layer(cfg.num_layers, tree["blocks"])
     return _tree(out, dev)
 
 
@@ -115,5 +128,6 @@ def decode_caches(cfg, tree, device=None) -> Dict[str, Any]:
     """The reference's decode caches (``prefill`` or ``decode_step``
     output, numpy arrays) as the port's: one entry per layer, attention
     caches ``{"k", "v"}`` in bf16, recurrent states ``(h, conv)``, ssm
-    states ``(conv, ssm)``."""
-    return _tree(_per_layer(cfg, tree), device_mod.resolve(device))
+    states ``(conv, ssm)``, enc-dec caches ``{"self", "cross"}``."""
+    return _tree(_per_layer(cfg.num_layers, tree),
+                 device_mod.resolve(device))

@@ -8,6 +8,9 @@ kind.
 ``python -m repro_torch.launch.profile_serve --arch mamba2-2.7b
 --prompt-lens 10,2048``
 
+Every registered model at full width; an encoder-decoder model's prefill
+takes as many frames as prompt tokens (random, from ``SEED``).
+
 Kinds: ``flash_attention_fwd``, ``rglru_scan`` and ``ssd_scan`` (this
 repo's kernels), ``matmul`` (cuBLAS), ``cast/copy`` (PyTorch's copy
 kernels: the f32 -> bf16 casts of the weights at every call, the K/V
@@ -121,7 +124,10 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     for n in lens:
         toks = torch.randint(0, cfg.vocab_size, (1, n), generator=gen,
                              device=dev)
-        prefill = lambda: model.prefill(params, toks, pad_cache_to=max_len)
+        extra = {"frames": torch.randn((1, n, cfg.d_model), generator=gen,
+                                       device=dev)} if cfg.is_encdec else {}
+        prefill = lambda: model.prefill(params, toks, pad_cache_to=max_len,
+                                        **extra)
         prefill()                                          # warm up
         out[f"prefill {n}"] = _phase(f"prefill of {n} tokens", prefill, dev)
 

@@ -3,7 +3,10 @@
 
 ``python -m repro_torch.launch.serve --arch smollm-360m --reduced --requests 16``
 
-Runs on the card unless ``--device cpu`` is given.  Models with local
+Runs on the card unless ``--device cpu`` is given, at full width unless
+``--reduced`` is given.  Every decoder-only family is served; an
+encoder-decoder model (seamless-m4t-large-v2) is refused, as its prefill
+needs frames that token requests do not carry.  Models with local
 attention need ``--max-len`` at least their window (2048 for
 recurrentgemma-2b); the default 128 is the reference's.
 """
@@ -34,14 +37,14 @@ def main(argv: Optional[Sequence[str]] = None) -> dict:
     from repro_torch.configs import get
     from repro_torch.models import build
     from repro_torch.serve import Request, ServingEngine
-    from repro_torch.serve.engine import check_max_len
+    from repro_torch.serve.engine import check_servable
 
     dev = device_mod.resolve(args.device)
     cfg = get(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
     model = build(cfg)
-    check_max_len(cfg, args.max_len)
+    check_servable(cfg, args.max_len)
     params = model.init(torch.Generator(device=dev).manual_seed(args.seed))
     print(f"serving {cfg.name}: params={model.param_count():,} "
           f"slots={args.batch_slots}")

@@ -1,3 +1,4 @@
-"""The LM substrate's models: dense, hybrid (RG-LRU + local attention) and
-ssm (Mamba2) decoders."""
+"""The LM substrate's models: dense, moe, hybrid (RG-LRU + local
+attention), ssm (Mamba2) and vision (vlm) decoders, and the
+encoder-decoder (audio)."""
 from repro_torch.models.model import Model, build

@@ -1,4 +1,4 @@
-"""Attention: GQA with RoPE, causal / local-window (port of
+"""Attention: GQA with RoPE, causal / local-window / cross (port of
 :mod:`repro.models.attention`, without sharding: one device needs none).
 
 Two execution paths:
@@ -25,7 +25,7 @@ from repro_torch.models.layers import apply_rope, cast, rope_angles
 from repro_torch.models.schema import Leaf
 
 
-def attn_schema(cfg: ModelConfig):
+def attn_schema(cfg: ModelConfig, cross: bool = False):
     d, h, k, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     s = {
         "wq": Leaf((d, h, hd), ("embed", "heads", "head_dim")),
@@ -33,14 +33,14 @@ def attn_schema(cfg: ModelConfig):
         "wv": Leaf((d, k, hd), ("embed", "kv_heads", "head_dim")),
         "wo": Leaf((h, hd, d), ("heads", "head_dim", "embed")),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         s["bq"] = Leaf((h, hd), ("heads", "head_dim"), init="zeros")
         s["bk"] = Leaf((k, hd), ("kv_heads", "head_dim"), init="zeros")
         s["bv"] = Leaf((k, hd), ("kv_heads", "head_dim"), init="zeros")
     return s
 
 
-def _project(x, w):
+def project(x, w):
     """x [B, S, d] bf16, w [d, n, hd] -> [B, S, n, hd] bf16."""
     d, n, hd = w.shape
     return torch.matmul(x, cast(w).reshape(d, n * hd)).reshape(
@@ -52,9 +52,9 @@ def qkv_project(params, x, cfg: ModelConfig, positions=None,
     """x: [B, S, d] -> q [B,S,K,G,hd], k/v [B,S,K,hd]."""
     h, k, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     g = h // k
-    q = _project(x, params["wq"])
-    kk = _project(x, params["wk"])
-    v = _project(x, params["wv"])
+    q = project(x, params["wq"])
+    kk = project(x, params["wk"])
+    v = project(x, params["wv"])
     if "bq" in params:
         q = q + cast(params["bq"])
         kk = kk + cast(params["bk"])

@@ -1,5 +1,5 @@
 """Public model API: ``build(cfg) -> Model`` with init / prefill / decode
-(port of :mod:`repro.models.model`: the dense, hybrid and ssm families)."""
+(port of :mod:`repro.models.model`: every family of the registry)."""
 from __future__ import annotations
 
 import dataclasses
@@ -8,11 +8,9 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import schema as schema_mod
 from repro_torch.models import transformer as tf_mod
-
-#: families the port runs
-FAMILIES = ("dense", "hybrid", "ssm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -22,6 +20,8 @@ class Model:
     # -- schema / params -----------------------------------------------------
     @property
     def schema(self):
+        if self.cfg.is_encdec:
+            return encdec_mod.encdec_schema(self.cfg)
         return tf_mod.model_schema(self.cfg)
 
     def init(self, gen: torch.Generator):
@@ -32,18 +32,38 @@ class Model:
         return schema_mod.param_count(self.schema)
 
     # -- forwards --------------------------------------------------------------
-    def prefill(self, params, tokens, pad_cache_to: Optional[int] = None):
-        """tokens [B, S] -> (last-position logits [B, V], caches)."""
-        logits, caches = tf_mod.forward(params, tokens, self.cfg,
-                                        mode="prefill")
+    def prefill(self, params, tokens, pad_cache_to: Optional[int] = None, *,
+                patch_embeds=None, frames=None):
+        """tokens [B, S] -> (last-position logits [B, V], caches).  A vision
+        model may take ``patch_embeds`` [B, P, d], prepended to the text;
+        an encoder-decoder model needs ``frames`` [B, Se, d] for its
+        encoder."""
+        cfg = self.cfg
+        if patch_embeds is not None and cfg.frontend != "vision":
+            raise ValueError(f"{cfg.name}: patch_embeds given to a model "
+                             f"with no vision frontend")
+        if cfg.is_encdec:
+            if frames is None:
+                raise ValueError(f"{cfg.name}: an encoder-decoder prefill "
+                                 f"needs frames [B, Se, d]")
+            logits, caches = encdec_mod.forward_encdec(
+                params, tokens, cfg, mode="prefill", frames=frames)
+        else:
+            if frames is not None:
+                raise ValueError(f"{cfg.name}: frames given to a model "
+                                 f"with no encoder")
+            logits, caches = tf_mod.forward(params, tokens, cfg,
+                                            mode="prefill",
+                                            patch_embeds=patch_embeds)
         if pad_cache_to is not None:
             caches = self.pad_caches(caches, pad_cache_to)
         return logits, caches
 
     def pad_caches(self, caches, target_len: int):
         """Extend full-attention KV caches' seq dim to target_len (for
-        decode continuation after prefill).  Ring (local) caches and
-        recurrent states are fixed-size and left untouched."""
+        decode continuation after prefill).  Ring (local) caches,
+        recurrent states and cross-attention caches are fixed-size and
+        left untouched."""
         if self.cfg.attention == "local":
             return caches
 
@@ -55,27 +75,32 @@ class Model:
                               + tuple(t.shape[2:]), dtype=t.dtype,
                               device=t.device)
             return torch.cat([t, pad], dim=1)
-        return {name: ({kk: _p(t) for kk, t in c.items()}
-                       if isinstance(c, dict) else c)
-                for name, c in caches.items()}
+
+        def _kv(c):
+            return ({kk: _p(t) for kk, t in c.items()}
+                    if isinstance(c, dict) else c)
+        if self.cfg.is_encdec:
+            return {name: {"self": _kv(c["self"]), "cross": c["cross"]}
+                    for name, c in caches.items()}
+        return {name: _kv(c) for name, c in caches.items()}
 
     def decode_step(self, params, tokens, caches, positions):
         """tokens [B,1] int; positions [B,1] int (absolute)."""
+        if self.cfg.is_encdec:
+            return encdec_mod.forward_encdec(params, tokens, self.cfg,
+                                             mode="decode", caches=caches,
+                                             positions=positions)
         return tf_mod.forward(params, tokens, self.cfg, mode="decode",
                               caches=caches, positions=positions)
 
     def init_decode_caches(self, batch: int, max_len: int, device):
+        if self.cfg.is_encdec:
+            return encdec_mod.init_decode_caches(self.cfg, batch, max_len,
+                                                 device)
         return tf_mod.init_decode_caches(self.cfg, batch, max_len, device)
 
 
 def build(cfg: ModelConfig) -> Model:
-    if cfg.family not in FAMILIES or cfg.is_moe or cfg.is_encdec \
-            or cfg.frontend != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family (frontend "
-            f"{cfg.frontend!r}) is not ported yet; the port runs the "
-            f"dense, hybrid and ssm families (ROADMAP.md queue 1 item 4: "
-            f"moe, encdec and vision are still to be ported)")
     if "ssm" in cfg.layer_kinds() and cfg.ssm_groups != 1:
         raise NotImplementedError(
             f"{cfg.name}: ssm_groups={cfg.ssm_groups}; the port's Mamba2 "

@@ -1,0 +1,146 @@
+"""Mixture-of-Experts block: top-k routing with capacity-factor token
+dropping and the Switch load-balancing loss (port of
+:mod:`repro.models.moe`, its single-device branch: ``E_local = E``,
+rank 0).
+
+The reference's expert-parallel branch (``shard_map`` over the 'model'
+axis with an FSDP gather of the expert slabs) waits for the port of
+``models/sharding.py``; one card holds every expert.
+
+The arithmetic follows the reference's, step by step, so that the routing
+decisions are the same:
+
+  * the router runs in f32 and the top k experts are taken by a stable
+    descending sort: among equal probabilities the lower expert index
+    wins, as with ``jax.lax.top_k`` (``torch.topk`` makes no such
+    promise);
+  * each (token, choice) pair, in token order, takes the next free slot
+    of its expert (the exclusive cumsum of the one-hot choices); pairs
+    past ``capacity`` are dropped and write to a trash row;
+  * the k weighted expert outputs of a token are summed in bf16 in choice
+    order, as the reference's scatter-add does (no ``index_add_``: on
+    CUDA its order is not fixed).
+
+The expert products are batched matmuls (the reference leaves them to
+XLA, outside any Pallas kernel).
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import cast
+from repro_torch.models.schema import Leaf
+
+
+def moe_schema(cfg: ModelConfig):
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.num_experts
+    s = {
+        "router": Leaf((d, e), ("embed_act", "experts"), init="normal"),
+        "wi": Leaf((e, d, f), ("experts", "embed", "expert_mlp"), fan_axis=1),
+        "wo": Leaf((e, f, d), ("experts", "expert_mlp", "embed"), fan_axis=1),
+    }
+    if cfg.mlp_gated:
+        s["wg"] = Leaf((e, d, f), ("experts", "embed", "expert_mlp"),
+                       fan_axis=1)
+    return s
+
+
+def capacity(tokens: int, cfg: ModelConfig) -> int:
+    """Slots of each expert for a batch of ``tokens`` tokens."""
+    c = int(tokens * cfg.experts_per_token * cfg.moe_capacity_factor
+            / cfg.num_experts)
+    return max(8, c)
+
+
+def route(xt, router_w, cfg: ModelConfig):
+    """xt [T, d] -> (probs [T, E] f32, top_w [T, k] f32 normalised,
+    top_e [T, k] int64): the k most probable experts of each token in
+    descending order, the lower index first among equal probabilities."""
+    logits = torch.matmul(xt.float(), router_w.float())
+    probs = torch.softmax(logits, dim=-1)
+    top_e = torch.sort(probs, dim=-1, descending=True,
+                       stable=True)[1][:, :cfg.experts_per_token]
+    return probs, gate_weights(probs, top_e), top_e
+
+
+def gate_weights(probs, top_e):
+    """The chosen experts' probabilities, normalised to sum to one."""
+    top_w = torch.gather(probs, 1, top_e)
+    return top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+
+
+def dispatch(top_e, num_experts: int, cap: int):
+    """top_e [T, k] -> (dest [T*k], keep [T*k] bool): the slot
+    ``expert * cap + position`` of each (token, choice) pair in token
+    order, ``num_experts * cap`` (the trash row) for a dropped pair.
+
+    A pair's position is the number of earlier pairs of its expert (the
+    reference's exclusive cumsum of the one-hot choices over [T*k, E]):
+    here its rank in a stable sort by expert less its expert's first rank,
+    the same integers without a scan down a tall [T*k, E] array (on the
+    card that scan took half of a 2048-token olmoe-1b-7b prefill)."""
+    flat_e = top_e.reshape(-1)
+    order = torch.sort(flat_e, stable=True)[1]
+    counts = torch.bincount(flat_e, minlength=num_experts)
+    starts = torch.cumsum(counts, dim=0) - counts
+    pos_in_e = torch.empty_like(flat_e)
+    pos_in_e[order] = torch.arange(flat_e.numel(), device=flat_e.device) \
+        - starts[flat_e[order]]
+    keep = pos_in_e < cap
+    dest = torch.where(keep, flat_e * cap + pos_in_e,
+                       torch.full_like(flat_e, num_experts * cap))
+    return dest, keep
+
+
+def moe_local(xt, router_w, wi, wg, wo, cfg: ModelConfig, cap: int):
+    """xt [T, d] bf16 -> (out [T, d], aux scalar, dropped share)."""
+    t, d = xt.shape
+    e, k = cfg.num_experts, cfg.experts_per_token
+    probs, top_w, top_e = route(xt, router_w, cfg)
+
+    # aux load-balancing loss (Switch): E * sum_e f_e * p_e
+    me = torch.mean(probs, dim=0)
+    ce = torch.zeros((e,), dtype=torch.float32, device=xt.device)
+    ce.index_add_(0, top_e.reshape(-1),
+                  torch.full((t * k,), 1.0 / (t * k), dtype=torch.float32,
+                             device=xt.device))
+    aux = e * torch.sum(me * ce)
+
+    dest, keep = dispatch(top_e, e, cap)
+    tok = torch.arange(t * k, device=xt.device) // k
+    xe = torch.zeros((e * cap + 1, d), dtype=xt.dtype, device=xt.device)
+    # kept slots are written once; dropped pairs write zeros to the trash
+    xe[dest] = torch.where(keep[:, None], xt[tok], xt.new_zeros(()))
+    xe = xe[:-1].reshape(e, cap, d)
+
+    h = torch.bmm(xe, cast(wi))
+    if wg is not None:
+        h = F.silu(torch.bmm(xe, cast(wg))) * h
+    else:
+        h = F.gelu(h, approximate="tanh")
+    ye = torch.bmm(h, cast(wo))
+
+    ye_flat = torch.cat([ye.reshape(e * cap, d), ye.new_zeros((1, d))])
+    contrib = ye_flat[dest] * (top_w.reshape(-1) * keep).to(
+        ye.dtype)[:, None]
+    contrib = contrib.reshape(t, k, d)
+    out = contrib[:, 0]
+    for j in range(1, k):                    # bf16 sums in choice order
+        out = out + contrib[:, j]
+
+    dropped = 1.0 - keep.float().sum() / max(t * k, 1)
+    return out.to(xt.dtype), aux, dropped
+
+
+def moe_block(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """x: [B, S, d] -> (out [B, S, d], aux_loss scalar)."""
+    b, s, d = x.shape
+    out, aux, _ = moe_local(x.reshape(b * s, d), params["router"],
+                            params["wi"], params.get("wg"), params["wo"],
+                            cfg, capacity(b * s, cfg))
+    return out.reshape(b, s, d), aux

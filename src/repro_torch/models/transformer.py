@@ -1,5 +1,5 @@
-"""Decoder-only LM assembly for the dense, hybrid and ssm families (port of
-:mod:`repro.models.transformer`).
+"""Decoder-only LM assembly for the dense, moe, hybrid, ssm and vision
+(vlm) families (port of :mod:`repro.models.transformer`).
 
 Every model keeps one parameter dict and one cache per layer
 (``blocks["layer_XX"]``), homogeneous ones too: the reference stacks the
@@ -9,6 +9,11 @@ layers of a homogeneous model along a leading ``[L, ...]`` axis for
 Two modes:
   prefill — builds per-layer caches, returns last-position logits + caches
   decode  — one token per sequence against caches (pos may vary per batch)
+
+A vision model's prefill may take precomputed patch embeddings: projected
+by ``frontend.proj`` and prepended to the text, so positions run over
+``P + S``.  An moe block's load-balancing loss is dropped (the port has
+no training path).
 
 Decode writes the new token's K/V into the attention caches in place (it
 saves a copy of every cache per step) and returns the caches.
@@ -21,12 +26,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
-    COMPUTE_DTYPE, embed, embedding_schema, mlp, mlp_schema, rmsnorm,
+    COMPUTE_DTYPE, cast, embed, embedding_schema, mlp, mlp_schema, rmsnorm,
     rmsnorm_schema, unembed,
 )
+from repro_torch.models.schema import Leaf
 
 MODES = ("prefill", "decode")
 
@@ -39,6 +46,9 @@ def block_schema(cfg: ModelConfig, kind: str):
     if kind == "attn":
         s["attn"] = attn.attn_schema(cfg)
         s["mlp"] = mlp_schema(cfg)
+    elif kind == "moe":
+        s["attn"] = attn.attn_schema(cfg)
+        s["moe"] = moe_mod.moe_schema(cfg)
     elif kind == "rec":
         s["rec"] = rglru_mod.rglru_schema(cfg)
         s["mlp"] = mlp_schema(cfg)
@@ -50,12 +60,16 @@ def block_schema(cfg: ModelConfig, kind: str):
 
 
 def model_schema(cfg: ModelConfig):
-    return {
+    s: Dict[str, Any] = {
         "embedding": embedding_schema(cfg),
         "final_norm": rmsnorm_schema(cfg.d_model),
         "blocks": {f"layer_{i:02d}": block_schema(cfg, k)
                    for i, k in enumerate(cfg.layer_kinds())},
     }
+    if cfg.frontend == "vision":
+        s["frontend"] = {"proj": Leaf((cfg.d_model, cfg.d_model),
+                                      ("embed", "embed_act"))}
+    return s
 
 
 # -- per-block apply -----------------------------------------------------------
@@ -115,6 +129,8 @@ def attn_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
 
     x = x + attn.out_project(lp["attn"], o, cfg)
     h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    if "moe" in lp:
+        return x + moe_mod.moe_block(lp["moe"], h2, cfg)[0], new_cache
     return x + mlp(lp["mlp"], h2, cfg), new_cache
 
 
@@ -136,12 +152,13 @@ def ssm_block_apply(lp, x, cfg: ModelConfig, *, mode: str, positions,
     return x + o, new_state
 
 
-_BLOCK_FNS = {"attn": attn_block, "rec": rec_block, "ssm": ssm_block_apply}
+_BLOCK_FNS = {"attn": attn_block, "moe": attn_block, "rec": rec_block,
+              "ssm": ssm_block_apply}
 
 
 def _cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                 device):
-    if kind == "attn":
+    if kind in ("attn", "moe"):
         return _attn_cache_init(cfg, batch, max_len, device)
     if kind == "rec":
         return rglru_mod.init_state(cfg, batch, device)
@@ -153,16 +170,21 @@ def _cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 # -- model forward --------------------------------------------------------------
 
 def forward(params, tokens, cfg: ModelConfig, *, mode: str, caches=None,
-            positions=None):
+            positions=None, patch_embeds=None):
     """Shared forward.  Returns (logits, caches).
 
-    prefill: tokens [B, S] -> (last_logits [B, V], caches)
+    prefill: tokens [B, S] (a vision model: and optionally patch_embeds
+             [B, P, d], prepended) -> (last_logits [B, V], caches)
     decode:  tokens [B, 1], positions [B, 1] = current absolute position
              per sequence -> (logits [B, V], caches)
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     x = embed(params["embedding"], tokens)
+    if patch_embeds is not None and mode == "prefill":
+        pe = torch.matmul(cast(patch_embeds),
+                          cast(params["frontend"]["proj"]))
+        x = torch.cat([pe, x], dim=1)
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]

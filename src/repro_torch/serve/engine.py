@@ -7,6 +7,11 @@ decodes one token for all active slots, greedily.  Completed sequences
 (EOS or max tokens) free their slot.  (The reference's ``greedy`` and
 ``b`` attributes, which nothing reads, are not carried over.)
 
+The engine serves every decoder-only family (a vision model without patch
+embeddings, as the reference's engine passes ``{"tokens"}`` alone to
+prefill) and refuses an encoder-decoder model, whose prefill needs frames
+that a request does not carry.
+
 Per-slot absolute positions let sequences of different lengths share one
 decode batch (the decode path takes positions [B, 1]).  KV caches live
 packed per slot in one ``[B, max_len, ...]`` buffer per layer; a prefill's
@@ -56,12 +61,24 @@ def _splice(batch_c, one_c, slot: int) -> None:
         batch_c[slot:slot + 1].copy_(one_c)
 
 
-def check_max_len(cfg: ModelConfig, max_len: int) -> None:
-    """Raise ``ValueError`` when a local-attention model's ``max_len`` is
-    below its window.  The reference allocates a ring of ``min(max_len,
-    window)`` slots but gathers a prefilled prompt into ``window`` slots,
-    so its first splice fails on a shape mismatch; the port refuses the
-    setting up front."""
+def check_servable(cfg: ModelConfig, max_len: int) -> None:
+    """Raise ``ValueError`` for a model the engine cannot serve:
+
+    * an encoder-decoder model: its prefill needs frames for the encoder,
+      which a request does not carry (the reference's engine passes tokens
+      alone and fails at its first prefill);
+    * a local-attention model whose ``max_len`` is below its window.  The
+      reference allocates a ring of ``min(max_len, window)`` slots but
+      gathers a prefilled prompt into ``window`` slots, so its first
+      splice fails on a shape mismatch; the port refuses the setting up
+      front."""
+    if cfg.is_encdec:
+        raise ValueError(
+            f"{cfg.name}: the engine serves token prompts, and an "
+            f"encoder-decoder prefill needs frames for its encoder (the "
+            f"reference's engine passes tokens alone and fails at the "
+            f"first prefill); run it through Model.prefill(..., "
+            f"frames=...) and Model.decode_step")
     if cfg.attention == "local" and max_len < cfg.window:
         raise ValueError(
             f"{cfg.name}: max_len={max_len} is below the local-attention "
@@ -72,7 +89,7 @@ def check_max_len(cfg: ModelConfig, max_len: int) -> None:
 class ServingEngine:
     def __init__(self, model: Model, params, batch_slots: int = 4,
                  max_len: int = 256, recorder: Any = None, device=None):
-        check_max_len(model.cfg, max_len)
+        check_servable(model.cfg, max_len)
         self.model = model
         self.params = params
         self.device = device_mod.resolve(device)

@@ -562,6 +562,14 @@ def test_fig13_on_card_matches_cpu(dev):
     # head dims that are not a multiple of 8: element loads, odd stores
     (1, 1, 2, 100, 100, 20, True, 0, 0, torch.bfloat16),
     (1, 1, 2, 50, 50, 33, True, 0, 0, torch.bfloat16),
+    # the moe, vision and enc-dec families: llama4-scout's GQA at hd 128,
+    # internvl2-1b's 256 patches + 40 tokens, seamless-m4t-large-v2's
+    # non-causal encoder (37 frames) and cross attention (Sq < 64 < Skv,
+    # Skv not a multiple of 64)
+    (1, 8, 5, 300, 300, 128, True, 0, 0, torch.bfloat16),
+    (1, 2, 7, 296, 296, 64, True, 0, 0, torch.bfloat16),
+    (1, 16, 1, 37, 37, 64, False, 0, 0, torch.bfloat16),
+    (1, 16, 1, 40, 1000, 64, False, 0, 0, torch.bfloat16),
 ])
 def test_flash_attention_close_to_plain(dev, b, k, g, sq, skv, hd, causal,
                                         window, off, dtype):
@@ -698,7 +706,8 @@ def test_ssd_scan_chunk_edges_close_to_plain(dev, bsz, s, p, n, slow, init):
 
 
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "smollm-360m",
-                                  "mamba2-2.7b"])
+                                  "mamba2-2.7b", "olmoe-1b-7b",
+                                  "internvl2-1b"])
 def test_reduced_serving_on_card(dev, arch):
     """The reduced model from the same weights: its prefill logits on the
     card within 8 bf16 epsilons (2^-7) of the largest CPU logit, the
@@ -726,9 +735,40 @@ def test_reduced_serving_on_card(dev, arch):
     done = eng.run_until_drained()
     assert [len(r.generated) for r in done] == [4, 4, 4]
     kinds = cfg.layer_kinds()
-    assert fa_ops.launches["flash_attention_fwd"] == 3 * kinds.count("attn")
+    assert fa_ops.launches["flash_attention_fwd"] == \
+        3 * (kinds.count("attn") + kinds.count("moe"))
     assert lru_ops.launches["rglru_scan"] == 3 * kinds.count("rec")
     assert ssd_ops.launches["ssd_scan"] == 3 * kinds.count("ssm")
+
+
+def test_reduced_encdec_on_card(dev):
+    """seamless-m4t-large-v2 reduced from the same weights: prefill (13
+    frames, 9 tokens) and two decode steps on the card within 8 bf16
+    epsilons of the CPU's largest logit; 2 encoder, 2 decoder and 2 cross
+    attention launches a prefill, none a decode step."""
+    cfg = get("seamless-m4t-large-v2").reduced()
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    card_params = _to(params, dev)
+    toks = torch.as_tensor((np.arange(9) * 7) % 200)[None]
+    frames = torch.randn((1, 13, cfg.d_model),
+                         generator=torch.Generator().manual_seed(1))
+    want, caches = model.prefill(params, toks, pad_cache_to=16,
+                                 frames=frames)
+    fa_ops.reset_launches()
+    got, card_caches = model.prefill(card_params, toks.to(dev),
+                                     pad_cache_to=16, frames=frames.to(dev))
+    assert fa_ops.launches["flash_attention_fwd"] == 6
+    for step in range(3):
+        tol = 8 * 2.0 ** -7 * want.float().abs().max().item()
+        torch.testing.assert_close(got.float().cpu(), want.float(),
+                                   atol=tol, rtol=0)
+        tok = torch.argmax(want[0]).reshape(1, 1)
+        pos = torch.tensor([[9 + step]])
+        want, caches = model.decode_step(params, tok, caches, pos)
+        got, card_caches = model.decode_step(card_params, tok.to(dev),
+                                             card_caches, pos.to(dev))
+    assert fa_ops.launches["flash_attention_fwd"] == 6
 
 
 def _to(tree, dev):

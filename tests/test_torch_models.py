@@ -1,9 +1,13 @@
 """The port's LM substrate (configs, schema, layers, attention, RG-LRU
 block, Mamba2 block, transformer, model) on the CPU against the JAX
 reference, for ``recurrentgemma-2b.reduced()`` (hybrid: rec, rec, attn
-with a local window of 32), ``smollm-360m.reduced()`` (dense GQA) and
-``mamba2-2.7b.reduced()`` (ssm: 2 layers, 8 SSD heads, chunk 8), with the
-reference's parameters carried across by ``convert.model_params``.
+with a local window of 32), ``smollm-360m.reduced()`` (dense GQA),
+``mamba2-2.7b.reduced()`` (ssm: 2 layers, 8 SSD heads, chunk 8) and
+``internvl2-1b.reduced()`` (vlm: qkv bias, 8 projected patch embeddings
+prepended to the text), with the reference's parameters carried across by
+``convert.model_params``.  ``tests/test_torch_moe.py`` and
+``tests/test_torch_encdec.py`` hold the moe and enc-dec families with the
+helpers here.
 
 The reference's mamba2 cannot prefill a prompt longer than its chunk
 whose length is not a multiple of it (ROADMAP.md queue 3, R6), so its
@@ -46,6 +50,9 @@ TOL_EPS = 8
 F32_REL = 1e-4
 ARCHS = ("recurrentgemma-2b", "smollm-360m")
 SSM_ARCH = "mamba2-2.7b"
+VLM_ARCH = "internvl2-1b"
+#: patch embeddings of the vlm's prefill (its reduced frontend_tokens)
+VLM_PATCHES = 8
 MAX_LEN = 96
 
 
@@ -72,26 +79,41 @@ def _flat_caches(c):
 
 
 class Pair:
-    """One config in both packages with the same parameters."""
+    """One config in both packages with the same parameters; ``replace``
+    sets config fields in both."""
 
-    def __init__(self, arch):
-        self.ref_cfg = ref_get(arch).reduced()
-        self.cfg = get(arch).reduced()
+    def __init__(self, arch, **replace):
+        self.ref_cfg = dataclasses.replace(ref_get(arch).reduced(), **replace)
+        self.cfg = dataclasses.replace(get(arch).reduced(), **replace)
         self.ref = ref_build(self.ref_cfg)
         self.model = build(self.cfg)
         self.ref_params = self.ref.init(jax.random.PRNGKey(0))
         self.params = convert.model_params(
             self.cfg, jax.tree.map(np.asarray, self.ref_params),
             device="cpu")
-        self.ref_prefill = jax.jit(
-            lambda p, t: self.ref.prefill(p, {"tokens": t}, CTX,
-                                          pad_cache_to=MAX_LEN))
+        prefill = jax.jit(
+            lambda p, inputs: self.ref.prefill(p, inputs, CTX,
+                                               pad_cache_to=MAX_LEN))
+        self.ref_prefill = lambda p, t, **extra: prefill(
+            p, {"tokens": t, **{k: jnp.asarray(v) for k, v in extra.items()}})
         self.ref_decode = jax.jit(
             lambda p, t, c, pos: self.ref.decode_step(p, t, c, pos, CTX))
 
     def prompt(self, n, seed):
         rng = np.random.default_rng(seed)
         return rng.integers(0, self.cfg.vocab_size, (1, n)).astype(np.int32)
+
+    def embeds(self, n, seed):
+        """[1, n, d] f32 patch embeddings or frames."""
+        rng = np.random.default_rng(seed)
+        return rng.standard_normal((1, n, self.cfg.d_model)).astype(
+            np.float32)
+
+    def prefill(self, toks, pad_cache_to=None, **extra):
+        """The port's prefill of numpy tokens and inputs."""
+        return self.model.prefill(
+            self.params, _tok(toks), pad_cache_to=pad_cache_to,
+            **{k: torch.from_numpy(v) for k, v in extra.items()})
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -108,11 +130,10 @@ def _tok(a):
     return torch.as_tensor(np.asarray(a, np.int64))
 
 
-def _prefill_matches(pair, n):
+def _prefill_matches(pair, n, **extra):
     toks = pair.prompt(n, seed=n)
-    rl, rc = pair.ref_prefill(pair.ref_params, jnp.asarray(toks))
-    logits, caches = pair.model.prefill(pair.params, _tok(toks),
-                                        pad_cache_to=MAX_LEN)
+    rl, rc = pair.ref_prefill(pair.ref_params, jnp.asarray(toks), **extra)
+    logits, caches = pair.prefill(toks, pad_cache_to=MAX_LEN, **extra)
     close(logits, rl, f"prefill logits n={n}")
     want = convert.decode_caches(pair.cfg, jax.tree.map(np.asarray, rc),
                                  device="cpu")
@@ -170,14 +191,19 @@ def test_ssm_prefill_logits_and_caches_match_reference(ssm_pair, n,
           tol_eps=F32_REL / BF16_EPS)
 
 
-def _decode_matches(pair, n):
+def _offset(extra):
+    """Positions taken by a prefill's patch embeddings (enc-dec frames
+    take none of the decoder's)."""
+    return extra["patch_embeds"].shape[1] if "patch_embeds" in extra else 0
+
+
+def _decode_matches(pair, n, **extra):
     toks = pair.prompt(n, seed=100 + n)
-    rl, rc = pair.ref_prefill(pair.ref_params, jnp.asarray(toks))
-    _, caches = pair.model.prefill(pair.params, _tok(toks),
-                                   pad_cache_to=MAX_LEN)
+    rl, rc = pair.ref_prefill(pair.ref_params, jnp.asarray(toks), **extra)
+    _, caches = pair.prefill(toks, pad_cache_to=MAX_LEN, **extra)
     tok = int(np.argmax(np.asarray(rl[0], np.float32)))
     for step in range(6):
-        pos = n + step
+        pos = _offset(extra) + n + step
         rl, rc = pair.ref_decode(pair.ref_params,
                                  jnp.asarray([[tok]], jnp.int32), rc,
                                  jnp.asarray([[pos]], jnp.int32))
@@ -200,13 +226,13 @@ def test_ssm_decode_logits_match_reference_teacher_forced(ssm_pair, n):
     _decode_matches(ssm_pair, n)
 
 
-def _decode_extends_prefill(pair, n):
+def _decode_extends_prefill(pair, n, **extra):
     toks = pair.prompt(n + 1, seed=200 + n)
-    _, caches = pair.model.prefill(pair.params, _tok(toks[:, :n]),
-                                   pad_cache_to=MAX_LEN)
-    logits, _ = pair.model.decode_step(pair.params, _tok(toks[:, n:]),
-                                       caches, torch.tensor([[n]]))
-    want, _ = pair.model.prefill(pair.params, _tok(toks))
+    _, caches = pair.prefill(toks[:, :n], pad_cache_to=MAX_LEN, **extra)
+    logits, _ = pair.model.decode_step(
+        pair.params, _tok(toks[:, n:]), caches,
+        torch.tensor([[_offset(extra) + n]]))
+    want, _ = pair.prefill(toks, **extra)
     close(logits, want, f"decode after prefill n={n}")
 
 
@@ -357,12 +383,79 @@ def test_configs_equal_reference(arch):
         dataclasses.asdict(ref_get(arch).reduced())
 
 
-@pytest.mark.parametrize("arch", ["olmoe-1b-7b",
-                                  "llama4-scout-17b-a16e",
-                                  "seamless-m4t-large-v2", "internvl2-1b"])
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build(get(arch))
+FULL_ARCHS = ("olmoe-1b-7b", "llama4-scout-17b-a16e", "internvl2-1b",
+              "seamless-m4t-large-v2")
+
+
+def _ref_shapes(node, prefix=""):
+    """``(dotted path, shape)`` of the reference's abstract parameters."""
+    for key in sorted(node):
+        if isinstance(node[key], dict):
+            yield from _ref_shapes(node[key], f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", tuple(node[key].shape)
+
+
+@pytest.mark.parametrize("arch", FULL_ARCHS)
+def test_full_size_schema_matches_reference(arch):
+    """The families this slice adds at full width and depth: the same
+    parameter count as the reference's schema, and each of the port's
+    per-layer leaves is one layer of the reference's ``[L, ...]`` stack
+    (counted from the schemas, nothing drawn)."""
+    model, ref = build(get(arch)), ref_build(ref_get(arch))
+    assert model.param_count() == ref.param_count()
+    want = dict(_ref_shapes(ref.abstract_params()))
+    got = {}
+    for path, leaf in leaves(model.schema):
+        parts = path.split(".")
+        layer = [i for i, p in enumerate(parts) if p.startswith("layer_")]
+        if layer:
+            del parts[layer[0]]
+        key = ".".join(parts)
+        shape = leaf.shape
+        if layer:
+            n = got.get(key, (0,) + shape)[0] + 1
+            shape = (n,) + shape
+        got[key] = shape
+    assert got == want
+
+
+@pytest.fixture(scope="module")
+def vlm_pair():
+    return Pair(VLM_ARCH)
+
+
+@pytest.mark.parametrize("n", [5, 40])
+def test_vlm_prefill_logits_and_caches_match_reference(vlm_pair, n):
+    """internvl2 with 8 patch embeddings projected and prepended: the
+    caches hold 8 + n positions, all within the tolerance."""
+    _prefill_matches(vlm_pair, n,
+                     patch_embeds=vlm_pair.embeds(VLM_PATCHES, seed=n))
+
+
+def test_vlm_text_only_prefill_matches_reference(vlm_pair):
+    """Without patch embeddings (as both engines prefill) the model is
+    the plain decoder."""
+    _prefill_matches(vlm_pair, 12)
+
+
+@pytest.mark.parametrize("n", [5, 40])
+def test_vlm_decode_logits_match_reference_teacher_forced(vlm_pair, n):
+    """Decode positions continue after the 8 patch positions."""
+    _decode_matches(vlm_pair, n,
+                    patch_embeds=vlm_pair.embeds(VLM_PATCHES, seed=50 + n))
+
+
+@pytest.mark.parametrize("n", [7, 31])
+def test_vlm_prefill_then_decode_equals_longer_prefill(vlm_pair, n):
+    _decode_extends_prefill(vlm_pair, n, patch_embeds=vlm_pair.embeds(
+        VLM_PATCHES, seed=70 + n))
+
+
+def test_vlm_schema_matches_reference(vlm_pair):
+    """The frontend's projection is a leaf of both, at [d, d]."""
+    _schema_matches(vlm_pair)
+    assert vlm_pair.params["frontend"]["proj"].shape == (64, 64)
 
 
 def test_padded_vocab_masked_like_reference():

@@ -3,7 +3,9 @@ engine behaviours (``tests/test_serve.py``), one engine run against the
 reference's engine on the same requests for each of
 ``recurrentgemma-2b.reduced()``, ``smollm-360m.reduced()`` and
 ``mamba2-2.7b.reduced()`` (``tests/test_serve.py``'s ssm engine round: 2
-slots, ``max_len`` 32, prompts of 4-6 tokens), and the
+slots, ``max_len`` 32, prompts of 4-6 tokens) and ``olmoe-1b-7b.reduced()``
+(moe: 4 experts, top-2; 2 slots for R5), the engine's refusal of an
+encoder-decoder model, and the
 reference faults R4 (``max_len`` below the local window) and R5 (one slot
 with per-layer caches) that the port refuses or does not share.
 
@@ -40,7 +42,8 @@ TOL_EPS = 8
 #: recurrentgemma ones straddle its reduced window of 32), slots, max_len
 RUNS = {"recurrentgemma-2b": ((5, 40, 70), 2, 96),
         "smollm-360m": ((4, 9, 20), 2, 64),
-        "mamba2-2.7b": ((4, 5, 6), 2, 32)}
+        "mamba2-2.7b": ((4, 5, 6), 2, 32),
+        "olmoe-1b-7b": ((4, 9, 20), 2, 64)}
 NEW_TOKENS = 6
 
 
@@ -335,6 +338,38 @@ def test_launcher_serves_mamba2_reduced_on_cpu(capsys):
                for r in out["requests"])
     assert re.search(r"^serving mamba2-2.7b-reduced: params=89,136 "
                      r"slots=4$", text, re.M)
+
+
+def test_launcher_serves_olmoe_reduced_on_cpu(capsys):
+    """The moe family through the launcher (4 experts, top-2)."""
+    out = launcher.main(["--arch", "olmoe-1b-7b", "--reduced", "--device",
+                         "cpu", "--requests", "3", "--max-new-tokens", "4"])
+    text = capsys.readouterr().out
+    assert out["tokens"] == 12 and len(out["requests"]) == 3
+    assert re.search(r"^serving olmoe-1b-7b-reduced: params=254,784 "
+                     r"slots=4$", text, re.M)
+
+
+def test_engine_refuses_encdec_model():
+    """An encoder-decoder prefill needs frames, which a request does not
+    carry: the engine refuses the model at construction, saying why (the
+    reference's engine builds and then fails at its first prefill, for
+    want of ``frames``), and so does the launcher, before drawing any
+    weights."""
+    cfg = get("seamless-m4t-large-v2").reduced()
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    with pytest.raises(ValueError, match="encoder-decoder.*frames"):
+        ServingEngine(model, params, batch_slots=2, max_len=32,
+                      device="cpu")
+    ref_model = ref_build(ref_get("seamless-m4t-large-v2").reduced())
+    ref_eng = RefEngine(ref_model, ref_model.init(jax.random.PRNGKey(0)),
+                        CTX, batch_slots=2, max_len=32)
+    ref_eng.submit(RefRequest(rid=0, prompt=np.arange(5), max_new_tokens=2))
+    with pytest.raises(KeyError, match="frames"):
+        ref_eng.run_until_drained()
+    with pytest.raises(ValueError, match="encoder-decoder.*frames"):
+        launcher.main(["--arch", "seamless-m4t-large-v2", "--device", "cpu"])
 
 
 def test_launcher_refuses_max_len_below_window_before_init():

@@ -572,6 +572,53 @@ class TestTraceRecorder:
         assert _fields(got.trace(n_phases=6)) == \
             _fields(want.trace(n_phases=6))
 
+    def test_recorded_olmoe_engine_run_equals_reference(self):
+        """A port engine run of reduced olmoe-1b-7b (moe, 2 slots: R5) and
+        the reference's engine on the same requests, each feeding its
+        package's ``TraceRecorder``: the same per-tick token counts and
+        the same compiled trace (the hooks see token counts and contexts,
+        so the engines' logits do not enter)."""
+        import jax
+        from repro.configs import get as j_get
+        from repro.models import ShardingCtx
+        from repro.models import build as j_build
+        from repro.serve import Request as JRequest
+        from repro.serve import ServingEngine as JEngine
+        from repro_torch import convert
+        from repro_torch.configs import get
+        from repro_torch.models import build
+        from repro_torch.serve import Request, ServingEngine
+        cfg = get("olmoe-1b-7b").reduced()
+        j_model = j_build(j_get("olmoe-1b-7b").reduced())
+        j_params = j_model.init(jax.random.PRNGKey(0))
+        params = convert.model_params(cfg, jax.tree.map(np.asarray, j_params),
+                                      device=CPU)
+        rng = np.random.default_rng(4)
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                   for n in (4, 9, 20, 6, 13)]
+        recs = []
+        for rec, eng, req in (
+                (tt.TraceRecorder.for_model(cfg),
+                 lambda r: ServingEngine(build(cfg), params, batch_slots=2,
+                                         max_len=48, recorder=r, device=CPU),
+                 Request),
+                (jt.TraceRecorder.for_model(j_get("olmoe-1b-7b").reduced()),
+                 lambda r: JEngine(j_model, j_params, ShardingCtx(),
+                                   batch_slots=2, max_len=48, recorder=r),
+                 JRequest)):
+            e = eng(rec)
+            for i, p in enumerate(prompts):
+                e.submit(req(rid=i, prompt=p, max_new_tokens=5))
+            e.run_until_drained()
+            recs.append(rec)
+        got, want = recs
+        assert got.n_ticks == want.n_ticks > 0
+        assert got.prefill_tokens_per_tick == want.prefill_tokens_per_tick
+        assert got.decode_tokens_per_tick == want.decode_tokens_per_tick
+        assert sum(got.prefill_tokens_per_tick) == 4 + 9 + 20 + 6 + 13
+        assert _fields(got.trace(n_phases=4)) == \
+            _fields(want.trace(n_phases=4))
+
     def test_recorded_engine_run_compiles_to_a_trace(self):
         """End to end: a port ServingEngine run (reduced smollm-360m, two
         slots: the reference's engine needs two, R5) through the recorder
