@@ -5,6 +5,7 @@
     python3 chip_smoke.py --periodic-ab OLD/flit_sim.cu [OTHER.cu ...]
     python3 chip_smoke.py --traces
     python3 chip_smoke.py --streaming
+    python3 chip_smoke.py --training
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``).  Phases, each fatal
 on failure:
@@ -121,6 +122,28 @@ on failure:
       whose experts differ logged per layer; a row past the bf16 bound is
       held again with the CPU on the card's experts, where they differ
       only at near ties;
+   i. training (``flash_attention_fwd``, ``rglru_scan``, ``ssd_scan`` in
+      a training step's forward, each through its
+      ``torch.autograd.Function``): one step (loss and every gradient) at
+      full width on one ``SyntheticLM`` batch for smollm-360m (2 layers,
+      2 x 256 tokens), recurrentgemma-2b (3 layers, one whole rec, rec,
+      attn pattern, 2 x 2048 on the card, and 2 x 256 against the CPU),
+      mamba2-2.7b (2 layers, 2 x 2048) and olmoe-1b-7b (2 layers, 2 x 256;
+      the CPU on the card's expert choices), on the card against the CPU: every leaf's gradient finite
+      and non-zero on the card, the loss within 8 bf16 epsilons of the
+      CPU's and each leaf within 16 of its largest CPU magnitude (the
+      bounds ``tests/test_torch_train.py`` holds against the reference),
+      the launches of a forward and of a rematerialized step exact; each
+      Function's gradients against autograd of its plain version at those
+      shapes (f32 within 1e-5 of the largest gradient), its kernel forward,
+      its backward and the plain forward + backward timed; the training
+      launcher at full width and depth (smollm-360m, 12 steps of 8 x 512
+      tokens, a checkpoint every 4, a failure at step 6): one restart, the
+      loss falling, the replayed steps' losses against the first pass's
+      bitwise (where not, the gather and matmul backwards run twice on the
+      same inputs to name the op), median step wall, tokens/s and peak
+      memory; ``torch.profiler`` over one such step: kernel ms by kind and
+      the idle share;
 
    The RG-LRU scan is held bitwise against its plain version in phase 3
    (it keeps the plain version's order) at nine cases (the serving
@@ -155,7 +178,9 @@ on failure:
 
 5. report: one ``{"kernels": [...]}`` line, then the result line.
 
-``--periodic-ab`` runs only phases 1-2 and the periodic detectors of
+``--training`` runs only phases 1-2 and the training phase (i), and prints
+one ``{"training": {...}}`` line last.  ``--periodic-ab`` runs only
+phases 1-2 and the periodic detectors of
 phase 3, for other ``flit_sim.cu`` files (a parent commit's, unpacked with
 ``git archive``) and this tree's in turns in one process, and prints one
 ``{"periodic_ab": [...]}`` line last.  ``--traces`` runs only phases 1-2
@@ -2837,6 +2862,472 @@ def phase_new_families() -> dict:
     return runs
 
 
+# -- the training slice: the LM kernels in a training step -------------------
+
+#: (arch, layers, tokens a sequence on the card, on the CPU) of the
+#: training step at full width, 2 sequences: recurrentgemma-2b at 3
+#: layers, one whole (rec, rec, attn) pattern, so that a local attention
+#: layer is in it.  Its CPU step at 2 x 2048 took 224 s on the 8 host
+#: cores of an H100 80GB HBM3 machine (22 TFLOP of bf16 products, its
+#: 256k-row vocabulary most of them), so the card-vs-CPU comparison runs a
+#: second card step at 2 x 256; its card step at 2 x 2048 is held to the
+#: launches and to finite, non-zero gradients
+TRAIN_CASES = (("smollm-360m", 2, 256, 256),
+               ("recurrentgemma-2b", 3, 2048, 256),
+               ("mamba2-2.7b", 2, 2048, 2048), ("olmoe-1b-7b", 2, 256, 256))
+#: a gradient leaf within GRAD_EPS bf16 epsilons of its largest CPU
+#: magnitude, the loss within TOL_EPS of |loss|: the bounds
+#: tests/test_torch_train.py holds the port to against the reference
+GRAD_EPS = 16
+#: the Functions' backwards against autograd of their plain versions, f32:
+#: within F32_GRAD of the largest |gradient| (the CPU tests' atol 1e-5,
+#: scaled to the gradient's size: the adjoint scan sums in another order)
+F32_GRAD = 1e-5
+#: the training launcher at full width and depth
+TRAIN_ARGV = ["--arch", "smollm-360m", "--steps", "12", "--global-batch",
+              "8", "--seq-len", "512", "--ckpt-every", "4", "--fail-at",
+              "6"]
+LM_KERNELS = ("flash_attention_fwd", "rglru_scan", "ssd_scan")
+#: the kernel each layer kind's forward launches
+KERNEL_OF_KIND = {"attn": "flash_attention_fwd",
+                  "moe": "flash_attention_fwd", "rec": "rglru_scan",
+                  "ssm": "ssd_scan"}
+
+
+def lm_counts() -> dict:
+    counts = read_counts()
+    return {k: counts[k] for k in LM_KERNELS}
+
+
+def step_launches(cfg, forward_only=False) -> dict:
+    """The LM kernels' launches of one training step of ``cfg``: each
+    layer's kernel once in the forward and, rematerialized, once more in
+    the backward's recompute; the RG-LRU scan a third time for its
+    adjoint (the attention and SSD backwards are their plain forms)."""
+    out = {k: 0 for k in LM_KERNELS}
+    for kind in cfg.layer_kinds():
+        name = KERNEL_OF_KIND[kind]
+        out[name] += 1 if forward_only else \
+            (1 + cfg.remat + (name == "rglru_scan"))
+    return out
+
+
+def leaves_by_path(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in leaves_by_path(tree[k], f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def card_step(model, params, cfg, batch, what):
+    """One training step on the card: (loss, gradients by leaf, launches
+    a forward, launches a step, its routes, wall s, peak GiB), the
+    launches held to :func:`step_launches` and every gradient leaf to
+    finite and non-zero."""
+    from repro_torch.train.train_step import value_and_grad
+    reset_counts()
+    with torch.no_grad():
+        model.loss(params, batch)
+    torch.cuda.synchronize()
+    fwd = lm_counts()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with Routes() as on_card:
+        loss, _, grads = value_and_grad(model, params, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    step = lm_counts()
+    if fwd != step_launches(cfg, forward_only=True) or \
+            step != step_launches(cfg):
+        raise AssertionError(f"{what}: launches {fwd} a forward, {step} a "
+                             f"step; want {step_launches(cfg, True)}, "
+                             f"{step_launches(cfg)}")
+    named = leaves_by_path(grads)
+    bad = [n for n, g in named if not (bool(torch.isfinite(g).all())
+                                       and bool((g != 0).any()))]
+    if bad:
+        raise AssertionError(f"{what}: leaves with a zero or non-finite "
+                             f"gradient on the card: {bad}")
+    return (loss, named, fwd, step, on_card, wall,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def train_card_vs_cpu(arch, layers, seq, cpu_seq) -> dict:
+    """One training step (loss and every gradient) of ``arch`` at full
+    width and ``layers`` layers on one ``SyntheticLM`` batch of 2 x
+    ``seq`` tokens on the card, weights drawn on the card from seed 0:
+    every leaf's gradient finite and non-zero, the launches of a forward
+    and of a step exactly :func:`step_launches`.  Then, at 2 x
+    ``cpu_seq`` tokens, against the same step on the CPU (weights copied):
+    the loss and each leaf within the CPU tests' bounds.  An moe model's
+    CPU step runs on the card's expert choices, its own recorded and
+    checked against the router's input (:func:`routes.parted`)."""
+    import dataclasses
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.train import SyntheticLM
+    from repro_torch.train.train_step import value_and_grad
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers)
+    model = build_model(cfg)
+    params = model.init(torch.Generator(device=DEV).manual_seed(0))
+    srcs = {n: SyntheticLM(cfg, ShapeSpec("train", n, 2, "train"))
+            for n in {seq, cpu_seq}}
+
+    def place(n, dev):
+        return srcs[n].place(srcs[n].batch_for_step(0), dev)
+    what = f"{arch} {layers} layers, 2 x {seq} tokens"
+    loss, named, fwd, step, on_card, card_s, peak = card_step(
+        model, params, cfg, place(seq, DEV), what)
+    if cpu_seq != seq:
+        log(f"training: {what}: loss {float(loss):.6f}, {len(named)} "
+            f"leaves, every card gradient finite and non-zero; launches "
+            f"{fwd} a forward, {step} a step (remat); {card_s:.2f} s "
+            f"({peak:.2f} GiB)")
+        what = f"{arch} {layers} layers, 2 x {cpu_seq} tokens"
+        loss, named, _, _, on_card, _, _ = card_step(
+            model, params, cfg, place(cpu_seq, DEV), what)
+    cpu_params = _to(params, torch.device("cpu"))
+    t0 = time.perf_counter()
+    with Routes(forced=on_card.own if cfg.is_moe else None) as on_cpu:
+        cpu_loss, _, cpu_grads = value_and_grad(
+            model, cpu_params, place(cpu_seq, torch.device("cpu")))
+    cpu_s = time.perf_counter() - t0
+    parted = routes.parted(on_cpu, on_card, cfg, what) if cfg.is_moe \
+        else None
+    loss_share = abs(float(loss) - float(cpu_loss)) / (
+        TOL_EPS * BF16_EPS * abs(float(cpu_loss)))
+    shares = {}
+    for (name, g), (_, w) in zip(named, leaves_by_path(cpu_grads)):
+        w = w.float()
+        tol = GRAD_EPS * BF16_EPS * float(w.abs().max())
+        shares[name] = float((g.float().cpu() - w).abs().max()) / tol
+    worst = max(shares, key=shares.get)
+    if loss_share > 1.0 or shares[worst] > 1.0:
+        raise AssertionError(f"{what}: loss {float(loss)} vs CPU "
+                             f"{float(cpu_loss)} ({loss_share:.2f} of "
+                             f"{TOL_EPS} bf16 eps); worst leaf {worst} at "
+                             f"{shares[worst]:.2f} of {GRAD_EPS} bf16 eps")
+    log(f"training: {what}: loss {float(loss):.6f} card, "
+        f"{float(cpu_loss):.6f} CPU ({loss_share:.3f} of the bound); "
+        f"{len(named)} leaves, every card gradient finite and non-zero, "
+        f"worst {worst} at {shares[worst]:.3f} of {GRAD_EPS} bf16 "
+        f"epsilons; launches {fwd} a forward, {step} a step (remat); card "
+        f"{card_s:.2f} s ({peak:.2f} GiB), CPU {cpu_s:.2f} s"
+        + ("" if parted is None else
+           f"; CPU held on the card's experts, tokens whose experts "
+           f"differ per layer {[r['sets'] + r['order'] for r in parted]}, "
+           f"all following the router's input"))
+    return dict(loss=float(loss), cpu_loss=float(cpu_loss),
+                loss_share=loss_share, worst_leaf=worst,
+                worst_share=shares[worst], leaves=len(named),
+                tokens=2 * seq, cpu_tokens=2 * cpu_seq,
+                forward_launches=fwd, step_launches=step, card_s=card_s,
+                cpu_s=cpu_s, peak_gib=peak,
+                routes=None if parted is None else [
+                    {k: r[k] for k in ("sets", "order", "by_input")}
+                    for r in parted])
+
+
+def grads_close(name, got, want) -> float:
+    """Fail unless each gradient is within ``F32_GRAD`` of its largest
+    |plain gradient|; returns the worst share of that bound."""
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        tol = F32_GRAD * float(w.abs().max())
+        err = float((g - w).abs().max())
+        if not bool(torch.isfinite(g).all()) or err > tol:
+            raise AssertionError(f"{name}: gradient {i} max |diff| {err} "
+                                 f"> {tol}")
+        worst = max(worst, err / tol if tol else 0.0)
+    return worst
+
+
+def function_record(name, fn, plain, ins, cot, fwd) -> dict:
+    """``fn`` (the Function on the kernel) against autograd of ``plain``
+    on the same inputs: gradients held (:func:`grads_close`); the kernel
+    forward ``fwd``, the Function's backward alone and the plain version's
+    forward and backward timed (CUDA events, median)."""
+    leaves = [t.detach().requires_grad_(True) for t in ins]
+    out = fn(*leaves)
+    got = torch.autograd.grad(out, leaves, cot, retain_graph=True)
+    want = torch.autograd.grad(plain(*leaves), leaves, cot)
+    share = grads_close(name, got, want)
+    rec = dict(share_of_tol=share,
+               fwd_ms=time_ms(lambda: fwd(*ins), 10),
+               bwd_ms=time_ms(lambda: torch.autograd.grad(
+                   out, leaves, cot, retain_graph=True), 5),
+               plain_fwd_bwd_ms=time_ms(lambda: torch.autograd.grad(
+                   plain(*leaves), leaves, cot), 3))
+    log(f"training: {name}: the Function's gradients within "
+        f"{share:.3f} of {F32_GRAD} x the largest plain gradient; kernel "
+        f"forward {rec['fwd_ms']:.4f} ms, the Function's backward "
+        f"{rec['bwd_ms']:.4f} ms, plain forward + backward "
+        f"{rec['plain_fwd_bwd_ms']:.4f} ms")
+    return rec
+
+
+#: the Functions' shapes: the attention layers of the card-vs-CPU steps of
+#: smollm-360m and recurrentgemma-2b ([B, K, G, S, hd], window), its
+#: RG-LRU scan ([B, S, C]) and mamba2-2.7b's SSD scan ([B, S, H, P, N],
+#: chunk)
+TRAIN_FA_SHAPES = (("smollm-360m", (2, 5, 3, 256, 64), 0),
+                   ("recurrentgemma-2b", (2, 1, 10, 2048, 256), 2048))
+TRAIN_LRU_SHAPE = (2, 2048, 2560)
+TRAIN_SSD_CASE = (2, 2048, 80, 64, 128, 256)
+
+
+def train_functions() -> dict:
+    """Each kernel's ``torch.autograd.Function`` at the training step's
+    shapes (the attention in bf16, as trained, and in f32; the RG-LRU scan
+    and the SSD scan in f32) against autograd of its plain version."""
+    gen = torch.Generator(device=DEV).manual_seed(23)
+    rn = lambda *shape: torch.randn(shape, generator=gen, device=DEV)
+    recs = {}
+    for label, (b, k, g, s, hd), window in TRAIN_FA_SHAPES:
+        for dtype in (torch.bfloat16, F32):
+            ins = [rn(b, k, g, s, hd).to(dtype), rn(b, k, s, hd).to(dtype),
+                   rn(b, k, s, hd).to(dtype)]
+            cot = rn(b, k, g, s, hd).to(dtype)
+            name = f"flash_attention_fwd {label} [{b},{k},{g},{s},{hd}] " \
+                f"{'bf16' if dtype != F32 else 'f32'}"
+            recs[name] = function_record(
+                name, lambda *t, w=window: fa_ops.FlashAttention.apply(
+                    *t, True, w, 0, fa_ops._launch),
+                lambda *t, w=window: fa_ref.attention_ref(
+                    *t, causal=True, window=w),
+                ins, cot, lambda *t, w=window: fa_ops._launch(
+                    *t, causal=True, window=w, q_offset=0))
+    shape = TRAIN_LRU_SHAPE
+    log_a = -torch.rand(shape, generator=gen, device=DEV) * 2.0
+    name = f"rglru_scan {list(shape)}"
+    recs[name] = function_record(
+        name, lambda la, bb: lru_ops.LRUScan.apply(la, bb, lru_ops._launch),
+        lru_ref.lru_ref, [log_a, rn(*shape)], rn(*shape), lru_ops._launch)
+    case = TRAIN_SSD_CASE
+    x, dt, bb, cc, a_log, _ = ssd_inputs(case, gen, slow=True)
+    name = f"ssd_scan {list(case[:5])}"
+    recs[name] = function_record(
+        name, lambda *t: ssd_ops.SSDScan.apply(*t, None, case[5],
+                                               ssd_ops._launch)[0],
+        lambda *t: ssd_ops.chunked(*t, case[5])[0], [x, dt, bb, cc, a_log],
+        (rn(*case[:4]),), lambda *t: ssd_ops._launch(*t, None))
+    return recs
+
+
+def replay_probe(params) -> dict:
+    """Which of the step's ops give other bits from the same inputs: the
+    embedding gather's backward (``index_put_`` with accumulate) and a
+    matmul's backward, each run twice."""
+    tokens = torch.randint(0, params["embedding"]["embed"].shape[0],
+                           (8, 512), device=DEV,
+                           generator=torch.Generator(device=DEV)
+                           .manual_seed(5))
+    emb = params["embedding"]["embed"].detach().requires_grad_(True)
+    g = torch.randn(8, 512, emb.shape[1], device=DEV)
+    gather = [torch.autograd.grad(emb[tokens], emb, g)[0]
+              for _ in range(2)]
+    w = params["blocks"]["layer_00"]["mlp"]["wi"].detach().to(
+        torch.bfloat16).requires_grad_(True)
+    xm = torch.randn(8 * 512, w.shape[0], device=DEV).to(torch.bfloat16)
+    gm = torch.randn(8 * 512, w.shape[1], device=DEV).to(torch.bfloat16)
+    mm = [torch.autograd.grad(xm @ w, w, gm)[0] for _ in range(2)]
+    return {"embedding gather backward (index_put_ accumulate)":
+            bool(torch.equal(*gather)),
+            "matmul backward": bool(torch.equal(*mm))}
+
+
+def train_launcher() -> dict:
+    """The training launcher at full width and depth (smollm-360m, 12
+    steps of 8 x 512 tokens, a checkpoint every 4 steps, a failure
+    injected at step 6): one restart, the loss falling from the first step
+    to the last, the replayed steps' losses compared with the first
+    pass's bitwise; step wall, tokens/s, peak memory and the kernels'
+    launches a step logged."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import train as train_launcher_mod
+    ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_train_")
+    argv = TRAIN_ARGV + ["--ckpt-dir", ckpt_dir]
+    log(f"training: launcher {' '.join(argv)}")
+    cfg = get_config("smollm-360m")
+    try:
+        reset_counts()
+        out = train_launcher_mod.main(argv)
+        counts = lm_counts()
+    finally:
+        disk = sum(f.stat().st_size for f in Path(ckpt_dir).rglob("*")
+                   if f.is_file()) / 2 ** 30
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    rep = out["report"]
+    first = [out["losses"][s][0] for s in sorted(out["losses"])]
+    replayed = {s: v for s, v in out["losses"].items() if len(v) > 1}
+    if rep.restarts != 1 or rep.restored_steps != [3] or \
+            sorted(replayed) != [4, 5]:
+        raise AssertionError(f"training launcher: restarts {rep.restarts}, "
+                             f"restored {rep.restored_steps}, replayed "
+                             f"{sorted(replayed)}")
+    if not first[-1] < first[0]:
+        raise AssertionError(f"training launcher: loss {first[0]} -> "
+                             f"{first[-1]} did not fall")
+    want = step_launches(cfg)
+    if any(n != want for n in out["launches"]):
+        raise AssertionError(f"training launcher: launches a step "
+                             f"{out['launches']}, want {want}")
+    bitwise = {s: v[0] == v[1] for s, v in replayed.items()}
+    rec = dict(losses=first, replayed={s: v for s, v in replayed.items()},
+               replay_bitwise=bitwise, median_step_s=out["median_step_s"],
+               tokens_per_s=out["tokens_per_step"] / out["median_step_s"],
+               peak_gib=out["peak_gib"], launches_per_step=want,
+               launches=counts,
+               wall_s=out["wall_s"], checkpoint_gib=disk,
+               step_s=out["step_s"])
+    if not all(bitwise.values()):
+        rec["probe"] = replay_probe(build_model(cfg).init(
+            torch.Generator(device=DEV).manual_seed(0)))
+    log(f"training: launcher: loss {first[0]:.4f} -> {first[-1]:.4f} "
+        f"over 12 steps, one restart from step 3; replayed steps 4, 5 "
+        f"bitwise {bitwise}" + (f" (same inputs twice, bitwise: "
+                                f"{rec['probe']})" if "probe" in rec else "")
+        + f"; median step {1e3 * rec['median_step_s']:.1f} ms "
+        f"({rec['tokens_per_s']:.0f} tokens/s), peak {rec['peak_gib']:.2f} "
+        f"GiB, {want} launches a step, checkpoints {disk:.2f} GiB on disk, "
+        f"wall {out['wall_s']:.1f} s [{card_line()}]")
+    return rec
+
+
+TRAIN_KINDS = ("flash fwd", "attention bwd", "matmul", "cast/copy",
+               "optimizer", "other")
+
+
+def train_kind(kernel_name: str) -> str:
+    """A kernel's kind by its name alone (``profile_serve.kind_of``; the
+    RG-LRU and SSD scans, absent from smollm-360m, fall in "other")."""
+    from repro_torch.launch.profile_serve import kind_of
+    return {"flash_attention_fwd": "flash fwd", "matmul": "matmul",
+            "cast/copy": "cast/copy"}.get(kind_of(kernel_name), "other")
+
+
+def kernels_under(prof, needle: str) -> dict:
+    """Kernel ms by name of every CPU event whose name holds ``needle``,
+    and of everything under it."""
+    seen, out = set(), {}
+
+    def walk(evt):
+        if id(evt) in seen:
+            return
+        seen.add(id(evt))
+        for k in evt.kernels:
+            out[k.name] = out.get(k.name, 0.0) + k.duration / 1e3
+        for child in evt.cpu_children:
+            walk(child)
+    for evt in prof.events():
+        if evt.device_type == torch.autograd.DeviceType.CPU and \
+                needle in evt.name:
+            walk(evt)
+    return out
+
+
+def train_profile() -> dict:
+    """``torch.profiler`` over one smollm-360m training step at full width
+    and depth (8 x 512 tokens, after two unprofiled steps): kernel ms by
+    kind (the flash forward, the attention backward under
+    ``FlashAttentionBackward``, the optimizer under its range, matmuls,
+    casts and copies, the rest) and the idle share of the profiled
+    wall."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.launch.profile_serve import device_ms
+    from repro_torch.train import (AdamW, SyntheticLM, cosine_schedule,
+                                   init_state, make_train_step)
+    from repro_torch.train.train_step import OPTIMIZER_RANGE
+    cfg = get_config("smollm-360m")
+    model = build_model(cfg)
+    opt = AdamW(learning_rate=cosine_schedule(3e-3, 10, 12))
+    state = init_state(model, torch.Generator(device=DEV).manual_seed(0),
+                       opt)
+    step = make_train_step(model, opt)
+    src = SyntheticLM(cfg, ShapeSpec("cli", 512, 8, "train"))
+    batches = [src.place(src.batch_for_step(i), DEV) for i in range(3)]
+    for b in batches[:2]:
+        state, m = step(state, b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, batches[0])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        state, m = step(state, batches[2])
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    by_name = device_ms(prof)
+    by_name.pop(OPTIMIZER_RANGE, None)      # the range's span, no kernel
+    busy = sum(by_name.values())
+    if busy <= 0.0:
+        raise AssertionError("training profile: no device kernel time")
+    kinds = {k: 0.0 for k in TRAIN_KINDS}
+    for kname, ms in by_name.items():
+        kinds[train_kind(kname)] += ms
+    # the ranges' kernels move from their name's kind to the range's
+    for kind, needle in (("attention bwd", "FlashAttentionBackward"),
+                         ("optimizer", OPTIMIZER_RANGE)):
+        for kname, ms in kernels_under(prof, needle).items():
+            kinds[train_kind(kname)] -= ms
+            kinds[kind] += ms
+    rec = dict(wall_ms=wall, profiled_wall_ms=prof_wall, device_ms=busy,
+               idle=1.0 - busy / prof_wall, kinds=kinds,
+               top=sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    log(f"training: profile of one smollm-360m step (8 x 512 tokens, 32 "
+        f"layers, remat): wall {wall:.2f} ms; profiled wall "
+        f"{prof_wall:.2f} ms, kernels {busy:.2f} ms (idle "
+        f"{100 * rec['idle']:.1f}%): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in kinds.items())
+        + f" [{card_line()}]")
+    for kname, ms in rec["top"]:
+        log(f"    {ms:9.3f} ms  {kname[:110]}")
+    return rec
+
+
+def training_kernel_record(name: str, training: dict) -> dict:
+    """A kernel's entry of the training phase: its launches a step of the
+    launcher run and of each card-vs-CPU step, and its Function's times
+    at the training shapes."""
+    return {
+        "launches": training["launcher"]["launches"][name],
+        "launches_from": "smollm-360m training launcher (12 steps + 2 "
+                         "replayed)",
+        "launches_per_step": training["launcher"]["launches_per_step"][name],
+        "card_vs_cpu_step_launches": {
+            arch: rec["step_launches"][name]
+            for arch, rec in training["card vs CPU"].items()},
+        "functions": {label: rec for label, rec in
+                      training["functions"].items()
+                      if label.startswith(name)}}
+
+
+def phase_training() -> dict:
+    """The training slice: one step at full width on the card against the
+    CPU for four models, each kernel's Function against autograd of its
+    plain version, the launcher at full width and depth with a restart,
+    and a profiled step."""
+    t0 = time.perf_counter()
+    out = {"card vs CPU": {}}
+    for arch, layers, seq, cpu_seq in TRAIN_CASES:
+        out["card vs CPU"][arch] = train_card_vs_cpu(arch, layers, seq,
+                                                     cpu_seq)
+        torch.cuda.empty_cache()
+    out["functions"] = train_functions()
+    torch.cuda.empty_cache()
+    out["launcher"] = train_launcher()
+    torch.cuda.empty_cache()
+    out["profile"] = train_profile()
+    torch.cuda.empty_cache()
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"training: phase wall {out['wall_s']:.1f} s")
+    return out
+
+
 def lm_kernel_records(lm_records, serving):
     """The ``{"kernels": [...]}`` entries of the serving slices' kernels:
     times at the largest shape (and the path's), launches from the
@@ -2893,6 +3384,8 @@ def main() -> None:
                     help="only check and time the trace-scan kernels")
     ap.add_argument("--streaming", action="store_true",
                     help="only run the streamed and perturbation phases")
+    ap.add_argument("--training", action="store_true",
+                    help="only run the training phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -2916,6 +3409,14 @@ def main() -> None:
         print(card)
         print(json.dumps({"streaming": records}))
         return
+    if args.training:
+        _build.build(["flash_attention", "rglru_scan", "ssd_scan"])
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        records = phase_training()
+        print(card)
+        print(json.dumps({"training": records}))
+        return
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -2937,6 +3438,7 @@ def main() -> None:
     stream = phase_streaming()
     serving = phase_serving()
     serving.update(phase_new_families())
+    training = phase_training()
 
     big = records["2^20 cells"]
     #: the main-path run each kernel's launch count is read from
@@ -3001,6 +3503,9 @@ def main() -> None:
                          "bound_ms", "bound_by", "cells", "cycles")},
         })
     kernels += lm_kernel_records(lm_records, serving)
+    for rec in kernels:
+        if rec["name"] in LM_KERNELS:
+            rec["training"] = training_kernel_record(rec["name"], training)
     log(f"streaming [{card}]: {json.dumps(stream)}")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -8,7 +8,11 @@ parameters and decode caches as nested dicts whose homogeneous layers are
 stacked along a leading ``[L, ...]`` axis.  These helpers turn numpy
 copies of any of them (``np.asarray`` of the reference's arrays) into the
 port's tensors on a given device, so a run started in one package can
-continue in the other.
+continue in the other.  Training states go both ways: :func:`train_state`
+carries a reference ``TrainState`` (or a checkpoint of one, read by
+:func:`repro_torch.checkpoint.ckpt.load`) into the port, and
+:func:`to_reference` lays the port's out as the reference's, to save a
+checkpoint the reference restores.
 """
 from __future__ import annotations
 
@@ -76,6 +80,8 @@ def _tree(node, dev: torch.device):
         return {k: _tree(v, dev) for k, v in node.items()}
     if isinstance(node, (tuple, list)):
         return tuple(_tree(v, dev) for v in node)
+    if isinstance(node, torch.Tensor):
+        return node.to(dev)
     arr = np.asarray(node)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.astype(np.float32)).to(
@@ -88,6 +94,8 @@ def _unstack(node, i: int):
         return {k: _unstack(v, i) for k, v in node.items()}
     if isinstance(node, (tuple, list)):
         return tuple(_unstack(v, i) for v in node)
+    if isinstance(node, torch.Tensor):
+        return node[i]
     return np.asarray(node)[i]
 
 
@@ -122,6 +130,96 @@ def model_params(cfg, tree, device=None) -> Dict[str, Any]:
     else:
         out["blocks"] = _per_layer(cfg.num_layers, tree["blocks"])
     return _tree(out, dev)
+
+
+def _field(node, name: str):
+    """A NamedTuple field, or a checkpoint's ``.name`` key (absent for the
+    error feedback of a state without one)."""
+    if isinstance(node, Mapping):
+        return node.get("." + name)
+    return getattr(node, name)
+
+
+def train_state(cfg, tree, device=None):
+    """The reference's ``TrainState`` (numpy leaves: ``params``, ``opt``
+    with ``step``, ``mu``, ``nu``, and ``error_fb`` or None), or the same
+    leaves as :func:`repro_torch.checkpoint.ckpt.load` reads them from a
+    reference checkpoint, as the port's ``TrainState`` on ``device``:
+    stacked ``[L, ...]`` blocks unstacked as :func:`model_params` does,
+    values and dtypes kept."""
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.train_step import TrainState
+    dev = device_mod.resolve(device)
+    opt, efb = _field(tree, "opt"), _field(tree, "error_fb")
+
+    def tensors(node):
+        return model_params(cfg, node, dev)
+    step = _field(opt, "step")
+    return TrainState(
+        params=tensors(_field(tree, "params")),
+        opt=AdamWState(step=torch.as_tensor(
+            np.array(step) if not isinstance(step, torch.Tensor)
+            else step).to(dev, torch.int32),
+            mu=tensors(_field(opt, "mu")), nu=tensors(_field(opt, "nu"))),
+        error_fb=None if efb is None else tensors(efb))
+
+
+def _stacked(cfg) -> bool:
+    """Whether the reference stacks the layers of ``cfg``'s blocks."""
+    return cfg.is_encdec or (cfg.scan_layers and cfg.homogeneous())
+
+
+def _restack(n: int, blocks):
+    """Per-layer ``layer_XX`` entries as one stack of ``[L, ...]`` numpy
+    leaves (the reference's scanned layout)."""
+    layers = [blocks[f"layer_{i:02d}"] for i in range(n)]
+
+    def stack(nodes):
+        if isinstance(nodes[0], Mapping):
+            return {k: stack([x[k] for x in nodes]) for k in nodes[0]}
+        return np.stack([_numpy(x) for x in nodes])
+    return stack(layers)
+
+
+def _numpy(t):
+    """A tensor (f32 or integer: a training state has no bf16 leaf) as a
+    numpy array."""
+    if isinstance(t, torch.Tensor):
+        return t.detach().cpu().numpy()
+    return np.asarray(t)
+
+
+def _ref_params(cfg, params):
+    out = {k: v for k, v in params.items()}
+    if cfg.is_encdec:
+        out["encoder"] = dict(params["encoder"], blocks=_restack(
+            cfg.encoder_layers, params["encoder"]["blocks"]))
+        out["decoder"] = dict(params["decoder"], blocks=_restack(
+            cfg.num_layers, params["decoder"]["blocks"]))
+    elif _stacked(cfg):
+        out["blocks"] = _restack(cfg.num_layers, params["blocks"])
+
+    def walk(node):
+        if isinstance(node, Mapping):
+            return {k: walk(v) for k, v in node.items()}
+        return _numpy(node)
+    return walk(out)
+
+
+def to_reference(cfg, state):
+    """The port's ``TrainState`` in the reference's layout, numpy leaves:
+    the blocks of a model the reference scans stacked along ``[L, ...]``
+    again.  :func:`repro_torch.checkpoint.ckpt.save` of it writes the
+    leaf names the reference's ``ckpt.restore`` looks for."""
+    from repro_torch.train.optimizer import AdamWState
+    from repro_torch.train.train_step import TrainState
+    return TrainState(
+        params=_ref_params(cfg, state.params),
+        opt=AdamWState(step=_numpy(state.opt.step),
+                       mu=_ref_params(cfg, state.opt.mu),
+                       nu=_ref_params(cfg, state.opt.nu)),
+        error_fb=None if state.error_fb is None
+        else _ref_params(cfg, state.error_fb))
 
 
 def decode_caches(cfg, tree, device=None) -> Dict[str, Any]:

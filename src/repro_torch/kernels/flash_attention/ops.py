@@ -1,11 +1,18 @@
-"""Launch wrapper of the flash-attention forward.
+"""Launch wrapper of the flash-attention forward, and its gradient.
 
 A CPU tensor goes to the plain version (:func:`repro_torch.kernels.
-flash_attention.ref.attention_ref`); a CUDA tensor goes to the CUDA kernel
+flash_attention.ref.attention_ref`), which autograd differentiates
+directly; a CUDA tensor goes to the CUDA kernel
 (:mod:`repro_torch.kernels.flash_attention.kernel`), or the wrapper
 raises — there is no fallback.  :func:`flash_attention` checks device,
 dtype, shape and contiguity and adds one to :data:`launches` where it
-launches the kernel.  Forward only: the port has no training path.
+launches the kernel.
+
+Gradients: where an operand needs one, the CUDA path runs through
+:class:`FlashAttention`, whose forward is the kernel and whose backward
+is the reference's (``repro/kernels/flash_attention/ops.py`` ``_bwd``):
+the VJP of ``attention_ref`` by recompute from the saved q, k and v.
+There is no backward kernel.
 """
 from __future__ import annotations
 
@@ -36,6 +43,37 @@ def softmax_scale(hd: int) -> float:
     return float(1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32)))
 
 
+class FlashAttention(torch.autograd.Function):
+    """``fwd(q, k, v, causal=, window=, q_offset=)`` forward (the kernel on
+    the card; a test may pass ``attention_ref``), and the VJP of
+    ``attention_ref`` recomputed from the saved operands backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, fwd):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, q_offset)
+        return fwd(q, k, v, causal=causal, window=window, q_offset=q_offset)
+
+    @staticmethod
+    def backward(ctx, g):
+        causal, window, q_offset = ctx.mask
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(True)
+                   for t in ctx.saved_tensors]
+            out = attention_ref(*ins, causal=causal, window=window,
+                                q_offset=q_offset)
+            dq, dk, dv = torch.autograd.grad(out, ins, g)
+        return dq, dk, dv, None, None, None, None
+
+
+def _launch(q, k, v, *, causal: bool, window: int, q_offset: int):
+    out = _k.flash_attention_fwd(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset,
+                                 scale=softmax_scale(q.shape[-1]))
+    launches["flash_attention_fwd"] += 1
+    return out
+
+
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     q_offset: int = 0):
     """q: [B, K, G, Sq, hd]; k, v: [B, K, Skv, hd] -> [B, K, G, Sq, hd]."""
@@ -55,8 +93,8 @@ def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                          f"{MAX_HEAD_DIM}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention: operands must be contiguous")
-    out = _k.flash_attention_fwd(q, k, v, causal=causal, window=window,
-                                 q_offset=q_offset,
-                                 scale=softmax_scale(q.shape[-1]))
-    launches["flash_attention_fwd"] += 1
-    return out
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                    _launch)
+    return _launch(q, k, v, causal=causal, window=window, q_offset=q_offset)

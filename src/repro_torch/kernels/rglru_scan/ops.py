@@ -1,12 +1,20 @@
-"""Launch wrapper of the RG-LRU scan.
+"""Launch wrapper of the RG-LRU scan, and its gradient.
 
 A CPU tensor goes to the plain version (:func:`repro_torch.kernels.
-rglru_scan.ref.lru_ref`); a CUDA tensor goes to the CUDA kernel
-(:mod:`repro_torch.kernels.rglru_scan.kernel`), or the wrapper raises —
-there is no fallback.  :func:`lru` casts its operands to contiguous f32
-(as the reference's wrapper does) and adds one to :data:`launches` where
-it launches the kernel; the operands' shapes are checked once, by the CPU
-path here or by the kernel's binding.  Any sequence length is taken.
+rglru_scan.ref.lru_ref`), which autograd differentiates directly; a CUDA
+tensor goes to the CUDA kernel (:mod:`repro_torch.kernels.rglru_scan.
+kernel`), or the wrapper raises — there is no fallback.  :func:`lru`
+casts its operands to contiguous f32 (as the reference's wrapper does)
+and adds one to :data:`launches` where it launches the kernel; the
+operands' shapes are checked once, by the CPU path here or by the
+kernel's binding.  Any sequence length is taken.
+
+Gradients: where an operand needs one, the CUDA path runs through
+:class:`LRUScan`.  The adjoint of h_t = a_t h_{t-1} + b_t is the same
+recurrence run backward in time (:func:`lru_adjoint`), so the backward is
+one more launch of the same kernel on time-reversed operands plus two
+elementwise products: the gradient the reference takes by
+differentiating its ``lru_scan``, with no S-step loop on the card.
 """
 from __future__ import annotations
 
@@ -17,13 +25,56 @@ import torch
 from repro_torch.kernels.rglru_scan import kernel as _k
 from repro_torch.kernels.rglru_scan.ref import check_operands, lru_ref
 
-#: CUDA launches since the last :func:`reset_launches`
+#: CUDA launches since the last :func:`reset_launches` (forward and
+#: backward scans alike)
 launches: Dict[str, int] = {"rglru_scan": 0}
 
 
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def lru_adjoint(log_a, h, dh, scan):
+    """The gradients (dlog_a, db) of h = scan(log_a, b) given dh, all
+    ``[B, S, C]`` f32:
+
+        g_t = dh_t + a_{t+1} g_{t+1}     (a_S := 0)
+        db_t = g_t
+        dlog_a_t = g_t a_t h_{t-1}      (h_{-1} := 0)
+
+    ``g`` is ``scan`` on the time-reversed operands with log_a shifted one
+    step and -inf at the end (exp(-inf) = 0 exactly)."""
+    nxt = torch.cat([log_a[:, 1:], torch.full_like(log_a[:, :1],
+                                                   float("-inf"))], dim=1)
+    g = torch.flip(scan(torch.flip(nxt, [1]),
+                        torch.flip(dh.float(), [1])), [1])
+    h_prev = torch.cat([torch.zeros_like(h[:, :1]), h[:, :-1]], dim=1)
+    return g * torch.exp(log_a) * h_prev, g
+
+
+class LRUScan(torch.autograd.Function):
+    """``scan(log_a, b)`` forward (the kernel on the card; a test may pass
+    ``lru_ref``), :func:`lru_adjoint` on the same ``scan`` backward."""
+
+    @staticmethod
+    def forward(ctx, log_a, b, scan):
+        h = scan(log_a, b)
+        ctx.save_for_backward(log_a, h)
+        ctx.scan = scan
+        return h
+
+    @staticmethod
+    def backward(ctx, dh):
+        log_a, h = ctx.saved_tensors
+        dlog_a, db = lru_adjoint(log_a, h, dh, ctx.scan)
+        return dlog_a, db, None
+
+
+def _launch(log_a, b):
+    out = _k.rglru_scan(log_a, b)
+    launches["rglru_scan"] += 1
+    return out
 
 
 def lru(log_a, b):
@@ -42,6 +93,6 @@ def lru(log_a, b):
         return lru_ref(log_a, b)
     if dev.type != "cuda":
         raise ValueError(f"rglru_scan: no kernel for device {dev}")
-    out = _k.rglru_scan(log_a, b)
-    launches["rglru_scan"] += 1
-    return out
+    if torch.is_grad_enabled() and (log_a.requires_grad or b.requires_grad):
+        return LRUScan.apply(log_a, b, _launch)
+    return _launch(log_a, b)

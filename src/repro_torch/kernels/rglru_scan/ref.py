@@ -29,8 +29,11 @@ def lru_ref(log_a, b, h0=None):
     bf = b.float()
     h = (torch.zeros((bsz, c), dtype=torch.float32, device=b.device)
          if h0 is None else h0.float())
-    out = torch.empty((bsz, s, c), dtype=torch.float32, device=b.device)
+    out = []
     for t in range(s):
         h = a[:, t] * h + bf[:, t]
-        out[:, t] = h
-    return out
+        out.append(h)
+    # stacked once: autograd differentiates the loop step by step (an
+    # in-place row write would copy the whole gradient at every step)
+    return torch.stack(out, dim=1) if out else torch.empty(
+        (bsz, 0, c), dtype=torch.float32, device=b.device)

@@ -55,10 +55,13 @@ def kind_of(kernel_name: str) -> str:
 
 
 def device_ms(prof) -> Dict[str, float]:
-    """Summed kernel time (ms) of a finished profile, by kernel name."""
+    """Summed kernel time (ms) of a finished profile, by kernel name (a
+    ``record_function`` range's span on the device timeline is no
+    kernel, and is left out)."""
     out: Dict[str, float] = {}
     for evt in prof.events():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
+        if evt.device_type == torch.autograd.DeviceType.CUDA and \
+                not getattr(evt, "is_user_annotation", False):
             out[evt.name] = out.get(evt.name, 0.0) + \
                 evt.time_range.elapsed_us() / 1e3
     return out

@@ -3,10 +3,11 @@
 
 Two execution paths:
 
-  * prefill — the flash-attention forward
+  * train and prefill — the flash-attention forward
     (:func:`repro_torch.kernels.flash_attention.ops.flash_attention`) in
-    its ``[B, K, G, S, hd]`` layout: the CUDA kernel on the card, its
-    plain version on the CPU.  The reference computes the same function
+    its ``[B, K, G, S, hd]`` layout: the CUDA kernel on the card (in
+    training through its ``torch.autograd.Function``), its plain version
+    on the CPU.  The reference computes the same function
     with its streaming-softmax oracle ``attend_chunked``.
   * ``attend_decode`` — one new token against a KV cache, plain PyTorch
     (the reference computes it outside any Pallas kernel too).

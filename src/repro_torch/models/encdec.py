@@ -9,17 +9,24 @@ Each stack keeps one parameter dict per layer (``encoder.blocks`` and
 ``lax.scan`` and :func:`repro_torch.convert.model_params` unstacks them.
 
 The encoder's self attention (non-causal), the decoder's self attention
-(causal) and the prefill's cross attention (non-causal, ``St`` queries
-against ``Se`` keys) run in the flash-attention wrapper.  Decode runs the
+(causal) and the train and prefill forwards' cross attention (non-causal,
+``St`` queries against ``Se`` keys) run in the flash-attention wrapper.  Decode runs the
 plain ``attend_decode`` for both: the self cache grows by one token in
 place, the cross cache (``Se`` positions, all valid) is the prefill's.
+
+A training forward (``mode="train"``) returns the full logits and no
+caches; where ``cfg.remat`` it rematerializes each encoder and decoder
+layer (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
 
 Caches, one per decoder layer: ``{"self": {"k", "v"}, "cross": {"k",
 "v"}}``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -77,13 +84,21 @@ def _enc_block(lp, x, cfg: ModelConfig, positions):
     return x + mlp(lp["mlp"], h2, cfg)
 
 
-def encode(params, frames, cfg: ModelConfig):
+def _layer(fn, remat: bool, *args):
+    """``fn(*args)``, rematerialized in the backward where ``remat``."""
+    if remat:
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def encode(params, frames, cfg: ModelConfig, remat: bool = False):
     """frames: [B, Se, d] precomputed frontend embeddings -> [B, Se, d]."""
     x = torch.matmul(cast(frames), cast(params["frontend"]["adapter"]))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     blocks = params["encoder"]["blocks"]
+    fn = functools.partial(_enc_block, cfg=cfg, positions=positions)
     for i in range(cfg.encoder_layers):
-        x = _enc_block(blocks[f"layer_{i:02d}"], x, cfg, positions)
+        x = _layer(fn, remat, blocks[f"layer_{i:02d}"], x)
     return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
 
 
@@ -97,8 +112,8 @@ def _cross_q(lp, hx, cfg: ModelConfig):
 
 def _dec_block(lp, x, enc, cfg: ModelConfig, *, mode: str, positions,
                cache=None):
-    """enc: encoder output [B, Se, d] (prefill) or None (decode, which
-    reads the cross K/V from ``cache``)."""
+    """enc: encoder output [B, Se, d] (train, prefill) or None (decode,
+    which reads the cross K/V from ``cache``)."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     q, k, v = attn.qkv_project(lp["attn"], h, cfg, positions=positions)
     if mode == "decode":
@@ -133,16 +148,28 @@ def _dec_block(lp, x, enc, cfg: ModelConfig, *, mode: str, positions,
 
 def forward_encdec(params, tokens, cfg: ModelConfig, *, mode: str,
                    frames=None, caches=None, positions=None):
-    """prefill: tokens [B, St], frames [B, Se, d] -> (last logits [B, V],
-    caches); decode: tokens [B, 1], caches, positions [B, 1] -> (logits
-    [B, V], caches)."""
+    """train: tokens [B, St], frames [B, Se, d] -> (logits [B, St, V], aux
+    f32 zero); prefill: the same inputs -> (last logits [B, V], caches);
+    decode: tokens [B, 1], caches, positions [B, 1] -> (logits [B, V],
+    caches)."""
     x = embed(params["embedding"], tokens)
     enc = None
-    if mode == "prefill":
-        enc = encode(params, frames, cfg)
+    if mode in ("train", "prefill"):
+        remat = cfg.remat and mode == "train"
+        enc = encode(params, frames, cfg, remat=remat)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     elif mode != "decode":
-        raise ValueError(f"mode {mode!r} not in ('prefill', 'decode')")
+        raise ValueError(f"mode {mode!r} not in ('train', 'prefill', "
+                         f"'decode')")
+    if mode == "train":
+        fn = functools.partial(_dec_block, enc=enc, cfg=cfg, mode="train",
+                               positions=positions)
+        for i in range(cfg.num_layers):
+            x = _layer(fn, remat, params["decoder"]["blocks"][
+                f"layer_{i:02d}"], x)[0]
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return unembed(params["embedding"], x, cfg), torch.zeros(
+            (), dtype=torch.float32, device=x.device)
     new_caches = {}
     for i in range(cfg.num_layers):
         name = f"layer_{i:02d}"

@@ -1,5 +1,12 @@
-"""Public model API: ``build(cfg) -> Model`` with init / prefill / decode
-(port of :mod:`repro.models.model`: every family of the registry)."""
+"""Public model API: ``build(cfg) -> Model`` with init / loss / prefill /
+decode (port of :mod:`repro.models.model`: every family of the registry).
+
+``Model.loss`` is differentiated by autograd: on the CPU through the
+kernels' plain versions, on the card through each kernel wrapper's
+``torch.autograd.Function`` (the kernel forward; backward by recompute of
+the plain attention and chunked SSD forms, and the RG-LRU adjoint scan on
+the same kernel), with every layer rematerialized where ``cfg.remat``.
+"""
 from __future__ import annotations
 
 import dataclasses
@@ -11,6 +18,22 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import schema as schema_mod
 from repro_torch.models import transformer as tf_mod
+
+
+def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4):
+    """Mean CE over valid tokens; f32; optional z-loss regularizer.  A
+    masked label may be negative (it is read as 0 and weighs nothing)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        labels.long().clamp(min=0)[..., None])[..., 0]
+    nll = lse - gold
+    if z_loss:
+        nll = nll + z_loss * torch.square(lse)
+    if mask is None:
+        mask = torch.ones_like(nll)
+    mask = mask.float()
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,6 +55,30 @@ class Model:
         return schema_mod.param_count(self.schema)
 
     # -- forwards --------------------------------------------------------------
+    def loss(self, params, batch):
+        """-> (loss, metrics).  ``batch``: ``tokens`` and ``labels`` [B, S]
+        int, and ``patch_embeds`` [B, P, d] (vision) or ``frames`` [B, Se,
+        d] (encoder-decoder); labels are aligned with the token positions
+        of the logits (a vision model's patch positions are sliced off).
+        The loss is next-token CE (labels < 0 masked) plus 0.01 x the moe
+        load-balancing loss."""
+        cfg = self.cfg
+        if cfg.is_encdec:
+            logits, aux = encdec_mod.forward_encdec(
+                params, batch["tokens"], cfg, mode="train",
+                frames=batch["frames"])
+        else:
+            pe = batch.get("patch_embeds") if cfg.frontend == "vision" \
+                else None
+            logits, aux = tf_mod.forward(params, batch["tokens"], cfg,
+                                         mode="train", patch_embeds=pe)
+            if pe is not None:
+                logits = logits[:, pe.shape[1]:, :]
+        labels = batch["labels"]
+        ce = cross_entropy(logits[:, :-1, :], labels[:, 1:],
+                           mask=(labels[:, 1:] >= 0))
+        return ce + 0.01 * aux, {"ce": ce, "aux": aux}
+
     def prefill(self, params, tokens, pad_cache_to: Optional[int] = None, *,
                 patch_embeds=None, frames=None):
         """tokens [B, S] -> (last-position logits [B, V], caches).  A vision

@@ -23,10 +23,19 @@ decisions are the same:
 
 The expert products are batched matmuls (the reference leaves them to
 XLA, outside any Pallas kernel).
+
+Training differentiates the block as autograd sees it: through the gate
+weights and ``aux`` into the router, through the expert products into
+the expert slabs (the chosen experts and slots are integers, as in the
+reference).  A training forward passes a ``routing`` dict: the first
+call of a layer records its expert choices there, and the recompute of a
+rematerialized layer takes them from it instead of routing again, so the
+backward sees the forward's dispatch whatever the rounding of the
+recompute.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,12 +65,16 @@ def capacity(tokens: int, cfg: ModelConfig) -> int:
     return max(8, c)
 
 
+def router_probs(xt, router_w):
+    """xt [T, d] -> the router's probabilities [T, E], f32."""
+    return torch.softmax(torch.matmul(xt.float(), router_w.float()), dim=-1)
+
+
 def route(xt, router_w, cfg: ModelConfig):
     """xt [T, d] -> (probs [T, E] f32, top_w [T, k] f32 normalised,
     top_e [T, k] int64): the k most probable experts of each token in
     descending order, the lower index first among equal probabilities."""
-    logits = torch.matmul(xt.float(), router_w.float())
-    probs = torch.softmax(logits, dim=-1)
+    probs = router_probs(xt, router_w)
     top_e = torch.sort(probs, dim=-1, descending=True,
                        stable=True)[1][:, :cfg.experts_per_token]
     return probs, gate_weights(probs, top_e), top_e
@@ -96,11 +109,24 @@ def dispatch(top_e, num_experts: int, cap: int):
     return dest, keep
 
 
-def moe_local(xt, router_w, wi, wg, wo, cfg: ModelConfig, cap: int):
-    """xt [T, d] bf16 -> (out [T, d], aux scalar, dropped share)."""
+def moe_local(xt, router_w, wi, wg, wo, cfg: ModelConfig, cap: int,
+              routing: Optional[dict] = None):
+    """xt [T, d] bf16 -> (out [T, d], aux scalar, dropped share).
+    ``routing``: the expert choices ``"top_e"`` [T, k] to take if it holds
+    them, else where to record the choices made."""
     t, d = xt.shape
     e, k = cfg.num_experts, cfg.experts_per_token
-    probs, top_w, top_e = route(xt, router_w, cfg)
+    if routing is None:
+        probs, top_w, top_e = route(xt, router_w, cfg)
+    else:
+        # the choices are routed once, outside the graph, so that a
+        # recompute saves the same tensors as the forward did
+        if "top_e" not in routing:
+            with torch.no_grad():
+                routing["top_e"] = route(xt, router_w, cfg)[2]
+        top_e = routing["top_e"]
+        probs = router_probs(xt, router_w)
+        top_w = gate_weights(probs, top_e)
 
     # aux load-balancing loss (Switch): E * sum_e f_e * p_e
     me = torch.mean(probs, dim=0)
@@ -136,11 +162,14 @@ def moe_local(xt, router_w, wi, wg, wo, cfg: ModelConfig, cap: int):
     return out.to(xt.dtype), aux, dropped
 
 
-def moe_block(params, x, cfg: ModelConfig) -> Tuple[torch.Tensor,
-                                                     torch.Tensor]:
-    """x: [B, S, d] -> (out [B, S, d], aux_loss scalar)."""
+def moe_block(params, x, cfg: ModelConfig,
+              routing: Optional[dict] = None) -> Tuple[torch.Tensor,
+                                                       torch.Tensor]:
+    """x: [B, S, d] -> (out [B, S, d], aux_loss scalar).  ``routing``: a
+    layer's expert choices of one training step (``"top_e"``), recorded
+    at its first call and reused by its recompute."""
     b, s, d = x.shape
     out, aux, _ = moe_local(x.reshape(b * s, d), params["router"],
                             params["wi"], params.get("wg"), params["wo"],
-                            cfg, capacity(b * s, cfg))
+                            cfg, capacity(b * s, cfg), routing)
     return out.reshape(b, s, d), aux

@@ -6,9 +6,10 @@
     log a_t = -c * softplus(Lambda) * r_t   (c = 8)
     h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-Prefill runs the recurrence through the RG-LRU scan wrapper
+Training and prefill run the recurrence through the RG-LRU scan wrapper
 (:func:`repro_torch.kernels.rglru_scan.ops.lru`: the CUDA kernel on the
-card, its plain version on the CPU; the reference computes the same
+card, differentiated by the adjoint scan on the same kernel; its plain
+version on the CPU; the reference computes the same
 function with ``jax.lax.associative_scan``); decode is a single
 recurrence step carrying h.  The block wraps the LRU with the Griffin
 recurrent-block structure: linear in, short depthwise conv, gated output

@@ -76,6 +76,7 @@ def ulp(p: torch.Tensor) -> torch.Tensor:
     return torch.ldexp(torch.ones_like(p), torch.frexp(p).exponent - 24)
 
 
+@torch.no_grad()
 def parted(a: Routes, b: Routes, cfg: ModelConfig, what: str) -> list:
     """Compare ``a``'s calls with ``b``'s, one by one (the same layers on
     the same tokens; ``b`` needs ``xt``, ``probs`` and ``own``).  Per

@@ -7,9 +7,10 @@ Per head h with scalar decay a_t = exp(dt_t * A_h)  (A_h = -exp(A_log)):
     y_t     = C_t . state_t + D_h * x_t
 
 The block takes one B/C group (``models.build`` refuses ``ssm_groups``
-other than 1: ROADMAP.md, R7).  Prefill runs the scan through the SSD
-wrapper (:func:`repro_torch.kernels.ssd_scan.ops.ssd`: the CUDA kernel on the
-card; on the CPU :func:`ssd_chunked`, the chunked closed form the
+other than 1: ROADMAP.md, R7).  Training and prefill run the scan through
+the SSD wrapper (:func:`repro_torch.kernels.ssd_scan.ops.ssd`: the CUDA
+kernel on the card, differentiated through the VJP of
+:func:`ssd_chunked`; on the CPU :func:`ssd_chunked`, the chunked closed form the
 reference's model runs, arXiv:2405.21060 §6).  Decode carries
 (conv_state, ssm_state [B, H, P, N]) and takes one recurrence step.
 

@@ -6,23 +6,31 @@ Every model keeps one parameter dict and one cache per layer
 layers of a homogeneous model along a leading ``[L, ...]`` axis for
 ``lax.scan``, and :func:`repro_torch.convert.model_params` unstacks them.
 
-Two modes:
+Three modes:
+  train   — full forward, no caches, returns logits [B, S, V] and the moe
+            blocks' load-balancing loss summed over the layers
   prefill — builds per-layer caches, returns last-position logits + caches
   decode  — one token per sequence against caches (pos may vary per batch)
 
-A vision model's prefill may take precomputed patch embeddings: projected
-by ``frontend.proj`` and prepended to the text, so positions run over
-``P + S``.  An moe block's load-balancing loss is dropped (the port has
-no training path).
+A vision model's train and prefill forwards may take precomputed patch
+embeddings: projected by ``frontend.proj`` and prepended to the text, so
+positions run over ``P + S``.  Where ``cfg.remat``, a training forward
+rematerializes each layer (``torch.utils.checkpoint``, non-reentrant,
+as the reference's ``jax.checkpoint``): only the layer inputs are kept,
+and the backward runs each layer's forward again, its kernels included.
+An moe layer's recompute takes the expert choices its forward made
+(``moe.moe_block``'s ``routing``).
 
 Decode writes the new token's K/V into the attention caches in place (it
 saves a copy of every cache per step) and returns the caches.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
@@ -35,7 +43,7 @@ from repro_torch.models.layers import (
 )
 from repro_torch.models.schema import Leaf
 
-MODES = ("prefill", "decode")
+MODES = ("train", "prefill", "decode")
 
 
 # -- schemas -------------------------------------------------------------------
@@ -96,7 +104,8 @@ def _ring_gather(kv, window: int):
 
 
 def attn_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
-               cache=None):
+               cache=None, routing=None):
+    """-> (x, new cache (None in train mode), moe aux loss or None)."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     window = cfg.window if cfg.attention == "local" else 0
     q, k, v = attn.qkv_project(lp["attn"], h, cfg, positions=positions)
@@ -121,7 +130,9 @@ def attn_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
         new_cache = {"k": kc, "v": vc}
     else:
         o = attn.attend_prefill(q, k, v, causal=True, window=window)
-        if window > 0:
+        if mode == "train":
+            new_cache = None
+        elif window > 0:
             new_cache = {"k": _ring_gather(k, window),
                          "v": _ring_gather(v, window)}
         else:
@@ -130,8 +141,9 @@ def attn_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
     x = x + attn.out_project(lp["attn"], o, cfg)
     h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
     if "moe" in lp:
-        return x + moe_mod.moe_block(lp["moe"], h2, cfg)[0], new_cache
-    return x + mlp(lp["mlp"], h2, cfg), new_cache
+        m, aux = moe_mod.moe_block(lp["moe"], h2, cfg, routing)
+        return x + m, new_cache, aux
+    return x + mlp(lp["mlp"], h2, cfg), new_cache, None
 
 
 def rec_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
@@ -141,7 +153,7 @@ def rec_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
                                          decode=(mode == "decode"))
     x = x + o
     h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + mlp(lp["mlp"], h2, cfg), new_state
+    return x + mlp(lp["mlp"], h2, cfg), new_state, None
 
 
 def ssm_block_apply(lp, x, cfg: ModelConfig, *, mode: str, positions,
@@ -149,7 +161,7 @@ def ssm_block_apply(lp, x, cfg: ModelConfig, *, mode: str, positions,
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     o, new_state = ssm_mod.ssm_block(lp["ssm"], h, cfg, state=cache,
                                      decode=(mode == "decode"))
-    return x + o, new_state
+    return x + o, new_state, None
 
 
 _BLOCK_FNS = {"attn": attn_block, "moe": attn_block, "rec": rec_block,
@@ -171,17 +183,18 @@ def _cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 def forward(params, tokens, cfg: ModelConfig, *, mode: str, caches=None,
             positions=None, patch_embeds=None):
-    """Shared forward.  Returns (logits, caches).
+    """Shared forward.
 
-    prefill: tokens [B, S] (a vision model: and optionally patch_embeds
-             [B, P, d], prepended) -> (last_logits [B, V], caches)
+    train:   tokens [B, S] (a vision model: and optionally patch_embeds
+             [B, P, d], prepended) -> (logits [B, P+S, V], aux f32 scalar)
+    prefill: the same inputs -> (last_logits [B, V], caches)
     decode:  tokens [B, 1], positions [B, 1] = current absolute position
              per sequence -> (logits [B, V], caches)
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     x = embed(params["embedding"], tokens)
-    if patch_embeds is not None and mode == "prefill":
+    if patch_embeds is not None and mode != "decode":
         pe = torch.matmul(cast(patch_embeds),
                           cast(params["frontend"]["proj"]))
         x = torch.cat([pe, x], dim=1)
@@ -189,10 +202,26 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, caches=None,
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
 
+    if mode == "train":
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for i, kind in enumerate(cfg.layer_kinds()):
+            fn = functools.partial(
+                _BLOCK_FNS[kind], cfg=cfg, mode="train", positions=positions,
+                **({"routing": {}} if kind == "moe" else {}))
+            lp = params["blocks"][f"layer_{i:02d}"]
+            if cfg.remat:
+                x, _, a = checkpoint(fn, lp, x, use_reentrant=False)
+            else:
+                x, _, a = fn(lp, x)
+            if a is not None:
+                aux = aux + a
+        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        return unembed(params["embedding"], x, cfg), aux
+
     new_caches = {}
     for i, kind in enumerate(cfg.layer_kinds()):
         name = f"layer_{i:02d}"
-        x, new_caches[name] = _BLOCK_FNS[kind](
+        x, new_caches[name], _ = _BLOCK_FNS[kind](
             params["blocks"][name], x, cfg, mode=mode, positions=positions,
             cache=caches[name] if mode == "decode" else None)
 

@@ -1,0 +1,101 @@
+"""Train step: microbatched gradient accumulation + AdamW + optional
+gradient compression (port of :mod:`repro.train.train_step`, one device).
+
+  * params f32 masters, cast to bf16 where each layer uses them (eagerly,
+    so again in each rematerialized layer's recompute; the reference's
+    XLA hoists one cast a step)
+  * gradients by autograd (``Model.loss``), accumulated in f32 over the
+    microbatches, then averaged
+  * per-layer remat inside the model where ``cfg.remat``
+  * the step is functional: it returns a new state and leaves the old one
+    as it was
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional
+
+import torch
+
+from repro_torch.models.model import Model
+from repro_torch.train import grad_compress
+from repro_torch.train.optimizer import (AdamW, AdamWState, tree_leaves,
+                                         tree_map)
+
+
+#: the ``torch.profiler`` range around the optimizer update
+OPTIMIZER_RANGE = "train_step.optimizer"
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: AdamWState
+    error_fb: Optional[Any]          # grad-compression error feedback
+
+
+def init_state(model: Model, gen: torch.Generator, optimizer: AdamW,
+               compress: bool = False) -> TrainState:
+    """Parameters drawn from ``gen`` on ``gen``'s device, zero moments."""
+    params = model.init(gen)
+    return TrainState(params=params, opt=optimizer.init(params),
+                      error_fb=(grad_compress.init_error_state(params)
+                                if compress else None))
+
+
+def value_and_grad(model: Model, params, batch: Dict[str, Any]):
+    """(loss, metrics, grads) of ``model.loss`` at ``params``: grads a tree
+    like ``params`` (zeros for a leaf the loss does not reach, as JAX
+    gives)."""
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    leaves = tree_leaves(live)
+    with torch.enable_grad():
+        loss, metrics = model.loss(live, batch)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    by_id = {id(p): torch.zeros_like(p) if g is None else g
+             for p, g in zip(leaves, grads)}
+    return loss.detach(), metrics, tree_map(lambda p: by_id[id(p)], live)
+
+
+def _split_microbatches(batch: Dict[str, Any], n_micro: int):
+    """[GB, ...] -> n_micro batches of [GB / n_micro, ...]."""
+    def split(x):
+        gb = x.shape[0]
+        assert gb % n_micro == 0, (gb, n_micro)
+        return x.reshape(n_micro, gb // n_micro, *x.shape[1:])
+    parts = {k: split(v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n_micro)]
+
+
+def make_train_step(model: Model, optimizer: AdamW,
+                    num_microbatches: int = 1, compress: bool = False):
+    """Returns train_step(state, batch) -> (state, metrics)."""
+
+    def train_step(state: TrainState, batch: Dict[str, Any]):
+        params = state.params
+
+        if num_microbatches == 1:
+            loss, _, grads = value_and_grad(model, params, batch)
+        else:
+            grads = tree_map(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device), params)
+            loss_sum = torch.zeros((), dtype=torch.float32,
+                                   device=tree_leaves(params)[0].device)
+            for mb in _split_microbatches(batch, num_microbatches):
+                loss, _, g = value_and_grad(model, params, mb)
+                grads = tree_map(lambda a, gi: a + gi.float(), grads, g)
+                loss_sum = loss_sum + loss
+            grads = tree_map(lambda g: g / num_microbatches, grads)
+            loss = loss_sum / num_microbatches
+
+        error_fb = state.error_fb
+        if compress and error_fb is not None:
+            grads, error_fb = grad_compress.compress_tree(grads, error_fb)
+
+        # a profiler range (a few µs when no profiler runs): the step's
+        # kernel time splits into the optimizer's and the rest
+        with torch.profiler.record_function(OPTIMIZER_RANGE):
+            new_params, opt_state, opt_metrics = optimizer.update(
+                grads, state.opt, params)
+        out_metrics = {"loss": loss, **opt_metrics}
+        return TrainState(new_params, opt_state, error_fb), out_metrics
+
+    return train_step

@@ -12,7 +12,12 @@ counts, cells that take the IEEE rerun and 1026 cells),
 the RG-LRU scan bitwise and the SSD scan within the reference's
 tolerance (atol 5e-5, rtol 1e-4; at the edges of its chunk at full width,
 1e-4 of the largest value), the launch counters, the bridge, the
-Fig-13 design space and reduced LM serving on the card.  Marked
+Fig-13 design space and reduced LM serving on the card; the kernels'
+``torch.autograd.Function``s against autograd of their plain versions (f32
+gradients within 1e-5 of the largest, the CPU tests' atol scaled to the
+gradient's size) and a reduced training step of every family on the card
+(every gradient leaf finite and non-zero, the loss within 8 bf16
+epsilons of the CPU's, the launches of a rematerialized step).  Marked
 ``cuda``: they skip where there is no card (as on a CPU-only machine) and
 run on the card with
 
@@ -905,3 +910,111 @@ def test_sweep_perturbed_adaptive_on_card(dev):
     assert card.coords == cpu.coords
     assert np.max(np.abs(card.values - fixed.values)) <= 1e-3
     assert np.max(np.abs(card.values - cpu.values)) <= 1e-6
+
+
+#: f32 gradients of a Function against autograd of its plain version:
+#: within GRAD_REL of the largest |gradient|
+GRAD_REL = 1e-5
+
+
+def _grads(fn, ins, cot):
+    leaves = [t.detach().requires_grad_(True) for t in ins]
+    return torch.autograd.grad(fn(*leaves), leaves, cot)
+
+
+def _grads_close(got, want):
+    for g, w in zip(got, want):
+        assert torch.isfinite(g).all()
+        assert (g - w).abs().max().item() <= \
+            GRAD_REL * w.abs().max().item()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 24])
+def test_flash_function_backward_on_card(dev, dtype, window):
+    """The Function's forward is the kernel (one launch), its backward the
+    VJP of the plain version: the gradients equal autograd's of the plain
+    version."""
+    gen = torch.Generator(device=dev).manual_seed(window)
+    q, k, v, g = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                  for shape in ((2, 2, 3, 70, 64), (2, 2, 70, 64),
+                                (2, 2, 70, 64), (2, 2, 3, 70, 64)))
+    fa_ops.reset_launches()
+    got = _grads(lambda *t: fa_ops.flash_attention(*t, True, window),
+                 (q, k, v), g)
+    assert fa_ops.launches["flash_attention_fwd"] == 1
+    want = _grads(lambda *t: fa_ref.attention_ref(*t, causal=True,
+                                                  window=window), (q, k, v), g)
+    _grads_close([x.float() for x in got], [x.float() for x in want])
+
+
+@pytest.mark.parametrize("shape", [(2, 300, 40), (1, 1, 16), (3, 77, 2560)])
+def test_lru_function_backward_on_card(dev, shape):
+    """The adjoint scan: one more launch of the kernel, the gradients of
+    autograd through the plain loop."""
+    gen = torch.Generator(device=dev).manual_seed(shape[1])
+    log_a = -2.0 * torch.rand(shape, generator=gen, device=dev)
+    b, dh = (torch.randn(shape, generator=gen, device=dev)
+             for _ in range(2))
+    lru_ops.reset_launches()
+    got = _grads(lru_ops.lru, (log_a, b), dh)
+    assert lru_ops.launches["rglru_scan"] == 2
+    _grads_close(got, _grads(lru_ref.lru_ref, (log_a, b), dh))
+
+
+@pytest.mark.parametrize("s", [40, 300])
+def test_ssd_function_backward_on_card(dev, s):
+    gen = torch.Generator(device=dev).manual_seed(s)
+    rn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    ins = (rn(2, s, 4, 16), torch.nn.functional.softplus(rn(2, s, 4) - 2),
+           0.5 * rn(2, s, 32), 0.5 * rn(2, s, 32), 0.3 * rn(4))
+    cot = rn(2, s, 4, 16)
+    ssd_ops.reset_launches()
+    got = _grads(lambda *t: ssd_ops.ssd(*t, 64)[0], ins, cot)
+    assert ssd_ops.launches["ssd_scan"] == 1
+    _grads_close(got, _grads(lambda *t: ssd_ops.chunked(*t, 64)[0], ins,
+                             cot))
+
+
+@pytest.mark.parametrize("arch,seq", [
+    ("smollm-360m", 32), ("recurrentgemma-2b", 48), ("mamba2-2.7b", 32),
+    ("olmoe-1b-7b", 32), ("internvl2-1b", 24),
+    ("seamless-m4t-large-v2", 32)])
+def test_reduced_training_step_on_card(dev, arch, seq):
+    """A reduced training step of each family on the card from the CPU's
+    weights: every gradient leaf finite and non-zero (a Function that
+    dropped its graph would leave the projections before it without
+    one), the loss within 8 bf16 epsilons of the CPU's, each layer's
+    kernel launched in the forward and again in its recompute (and the
+    RG-LRU scan a third time for its adjoint).  An moe model's CPU step
+    takes the card's expert choices."""
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.models.routes import Routes
+    from repro_torch.train import SyntheticLM
+    from repro_torch.train.train_step import value_and_grad
+    cfg = get(arch).reduced()
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    src = SyntheticLM(cfg, ShapeSpec("t", seq, 2, "train"))
+    batch = src.batch_for_step(0)
+    for ops_ in (fa_ops, lru_ops, ssd_ops):
+        ops_.reset_launches()
+    with Routes() as card_routes:
+        loss, _, grads = value_and_grad(model, _to(params, dev),
+                                        src.place(batch, dev))
+    kinds = cfg.layer_kinds() + (("attn",) * 2 * cfg.encoder_layers
+                                 if cfg.is_encdec else ())
+    attn = kinds.count("attn") + kinds.count("moe")
+    assert fa_ops.launches["flash_attention_fwd"] == 2 * attn
+    assert lru_ops.launches["rglru_scan"] == 3 * kinds.count("rec")
+    assert ssd_ops.launches["ssd_scan"] == 2 * kinds.count("ssm")
+
+    def leaves(tree):
+        return [x for k in sorted(tree) for x in leaves(tree[k])] \
+            if isinstance(tree, dict) else [tree]
+    for g in leaves(grads):
+        assert torch.isfinite(g).all() and (g != 0).any()
+    with Routes(forced=card_routes.own if cfg.is_moe else None):
+        want, _, _ = value_and_grad(model, params, src.place(batch, "cpu"))
+    assert abs(float(loss) - float(want)) <= 8 * 2.0 ** -7 * abs(
+        float(want))

@@ -49,7 +49,12 @@ def test_port_has_modules():
                  "kernels/ssd_scan/ref.py", "kernels/ssd_scan/kernel.py",
                  "kernels/ssd_scan/ops.py", "traces/trace.py",
                  "traces/frontier.py", "traces/recorder.py",
-                 "core/streaming.py", "models/moe.py", "models/encdec.py"):
+                 "core/streaming.py", "models/moe.py", "models/encdec.py",
+                 "configs/shapes.py", "train/optimizer.py",
+                 "train/grad_compress.py", "train/data.py",
+                 "train/train_step.py", "checkpoint/ckpt.py",
+                 "runtime/fault.py", "runtime/straggler.py",
+                 "launch/train.py"):
         assert want in names
 
 
@@ -83,7 +88,7 @@ def _entry_points():
     from repro_torch.core import flitsim, report, selector, space, traffic
     from repro_torch.configs import get
     from repro_torch.kernels.flit_pack import ops as pack_ops
-    from repro_torch.launch import profile_serve, serve
+    from repro_torch.launch import profile_serve, serve, train
     from repro_torch.models import build
     from repro_torch.roofline import analysis
     from repro_torch.serve import ServingEngine
@@ -131,6 +136,11 @@ def _entry_points():
                                              "--reduced"]),
         "profile_serve": lambda: profile_serve.main(["--arch",
                                                      "smollm-360m"]),
+        "train_cli": lambda: train.main(["--arch", "smollm-360m",
+                                         "--reduced", "--steps", "1"]),
+        "train_state": lambda: convert.train_state(
+            small.cfg, {".params": {"blocks": {}}, ".opt": {
+                ".step": 0, ".mu": {"blocks": {}}, ".nu": {"blocks": {}}}}),
     }
 
 
@@ -142,7 +152,8 @@ def _entry_points():
     "mix_grid", "rank", "best", "sweep_mode", "explorer_cli_sweep",
     "quickstart", "quickstart_cli", "simulate_lpddr6_pipelining",
     "sweep_pipelining", "simulators", "pack", "model_params",
-    "serving_engine", "serve_cli", "serve_cli_ssm", "profile_serve"]))
+    "serving_engine", "serve_cli", "serve_cli_ssm", "profile_serve",
+    "train_cli", "train_state"]))
 def test_entry_points_need_a_card_by_default(name):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present: the default device works")
