@@ -6,6 +6,7 @@
     python3 chip_smoke.py --traces
     python3 chip_smoke.py --streaming
     python3 chip_smoke.py --training
+    python3 chip_smoke.py --mesh
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``).  Phases, each fatal
 on failure:
@@ -144,6 +145,24 @@ on failure:
       same inputs to name the op), median step wall, tokens/s and peak
       memory; ``torch.profiler`` over one such step: kernel ms by kind and
       the idle share;
+   j. the multi-device path (``flash_attention_fwd`` and ``rglru_scan`` on
+      each rank's local shards): four ranks, NCCL with a card each, else
+      gloo with every collective staged through host memory (the backend
+      and the transport logged); the training launcher at full width and
+      depth on a (2, 2) mesh (smollm-360m, 4 steps of 8 x 512 tokens, a
+      checkpoint every 2, a failure at step 3: one restart, the replayed
+      losses bitwise, the launches of a step exact on each rank); its last
+      checkpoint restored onto one card and onto a (4, 1) mesh, every leaf
+      bitwise; then one sharded step at full width of smollm-360m (2
+      layers, the query-sequence attention branch) and olmoe-1b-7b (2
+      layers, capacity factor 8: the KV-heads branch and the
+      expert-parallel MoE) on (2, 2) and recurrentgemma-2b (3 layers) on
+      (4, 1), 2 x 256 tokens a rank, against one card's step from the same
+      draw (the loss within 8 bf16 epsilons, each gathered gradient leaf
+      within 16 of its largest magnitude, the parameters after the step
+      within 5e-2; each rank's blocks gathered back equal to the whole
+      leaves bitwise, its launches exact), and one more step timed: its
+      wall, peak GiB and collective bytes a rank;
 
    The RG-LRU scan is held bitwise against its plain version in phase 3
    (it keeps the plain version's order) at nine cases (the serving
@@ -179,7 +198,8 @@ on failure:
 5. report: one ``{"kernels": [...]}`` line, then the result line.
 
 ``--training`` runs only phases 1-2 and the training phase (i), and prints
-one ``{"training": {...}}`` line last.  ``--periodic-ab`` runs only
+one ``{"training": {...}}`` line last; ``--mesh`` only phases 1-2 and the
+multi-device phase (j), and one ``{"mesh": {...}}`` line last.  ``--periodic-ab`` runs only
 phases 1-2 and the periodic detectors of
 phase 3, for other ``flit_sim.cu`` files (a parent commit's, unpacked with
 ``git archive``) and this tree's in turns in one process, and prints one
@@ -194,6 +214,7 @@ import contextlib
 import ctypes
 import importlib.util
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -3328,6 +3349,330 @@ def phase_training() -> dict:
     return out
 
 
+#: phase j: the sharded training steps, (arch, layers, mesh, local rows,
+#: config replacements): each held against one card's step from the same
+#: full draw
+MESH_CASES = (("smollm-360m", 2, (2, 2), 2, {}),
+              ("olmoe-1b-7b", 2, (2, 2), 2, {"moe_capacity_factor": 8.0}),
+              ("recurrentgemma-2b", 3, (4, 1), 1, {}))
+MESH_SEQ = 256
+#: timed sharded steps after the checked one
+MESH_STEPS = 1
+#: the training launcher on a (2, 2) mesh, full width and depth
+MESH_ARGV = ["--arch", "smollm-360m", "--steps", "4", "--global-batch", "8",
+             "--seq-len", "512", "--ckpt-every", "2", "--fail-at", "3",
+             "--mesh", "2,2"]
+#: the elastic restores of the launcher's last checkpoint
+ELASTIC_MESH = (4, 1)
+
+
+def _mesh_step_case(case, ctx) -> dict:
+    """One sharded training step of ``case`` (see :data:`MESH_CASES`) on
+    this rank, then :data:`MESH_STEPS` timed ones.  Rank 0 first runs one
+    card's step from the same full draw and batch; the sharded step's loss,
+    gradients (gathered leaf by leaf) and updated parameters are held to
+    it."""
+    import dataclasses
+    from repro_torch.configs.shapes import ShapeSpec
+    from repro_torch.models import sharding
+    from repro_torch.train import AdamW, SyntheticLM, constant_schedule
+    from repro_torch.train.train_step import value_and_grad
+    t_case = time.perf_counter()
+    arch, layers, shape, rows, rep = case
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, **rep)
+    model = build_model(cfg)
+    dev = ctx.mesh.device
+    rank0 = ctx.mesh.rank == 0
+    full = model.init(torch.Generator(device=dev).manual_seed(0))
+    specs = model.param_specs(ctx)
+    local = model.shard_params(full, ctx)
+    placed = all(bool(torch.equal(sharding.unshard(a, sp, ctx), b))
+                 for (_, a), (_, sp), (_, b) in zip(
+                     leaves_by_path(local), leaves_by_path(specs),
+                     leaves_by_path(full)))
+    src = SyntheticLM(cfg, ShapeSpec("t", MESH_SEQ, rows * ctx.dp_size(),
+                                     "train"))
+    opt = AdamW(learning_rate=constant_schedule(1e-2), weight_decay=0.0)
+    batch0 = src.batch_for_step(0)
+    rec = dict(arch=arch, layers=layers, mesh=list(shape),
+               tokens_per_rank=rows * MESH_SEQ, want_launches=step_launches(
+                   cfg))
+    if rank0:
+        reset_counts()
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        loss1, _, grads1 = value_and_grad(model, full, src.place(batch0,
+                                                                 dev))
+        params1, opt1, m1 = opt.update(grads1, opt.init(full), full)
+        torch.cuda.synchronize(dev)
+        rec.update(one_card_s=time.perf_counter() - t0,
+                   one_card_launches=lm_counts(), one_card_loss=float(loss1),
+                   one_card_grad_norm=float(m1["grad_norm"]))
+        want_g = {n: g.cpu() for n, g in leaves_by_path(grads1)}
+        want_p = {n: p.cpu() for n, p in leaves_by_path(params1)}
+        del loss1, grads1, params1, opt1, m1
+    del full
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+
+    state_opt = opt.init(local)
+    walls, launches, traffic = [], [], []
+    torch.cuda.reset_peak_memory_stats(dev)
+    for i in range(1 + MESH_STEPS):
+        batch = src.place(src.batch_for_step(i) if i else batch0, dev, ctx)
+        torch.distributed.barrier()
+        torch.cuda.synchronize(dev)
+        reset_counts()
+        sharding.reset_traffic()
+        t0 = time.perf_counter()
+        loss, _, grads = value_and_grad(model, local, batch, ctx)
+        new, new_opt, metrics = opt.update(grads, state_opt, local, ctx,
+                                           specs)
+        torch.cuda.synchronize(dev)
+        walls.append(time.perf_counter() - t0)
+        launches.append(lm_counts())
+        traffic.append(dict(sharding.traffic))
+        local, state_opt = new, new_opt
+        del new, new_opt
+        if i == 0:
+            rec.update(loss=float(loss), grad_norm=float(metrics["grad_norm"]))
+            shares, pdiff, finite = {}, 0.0, True
+            for (name, g), (_, p), (_, sp) in zip(
+                    leaves_by_path(grads), leaves_by_path(local),
+                    leaves_by_path(specs)):
+                # gathered leaf by leaf and compared on the host: four
+                # ranks may share the card's memory
+                g = sharding.unshard(g, sp, ctx).cpu()
+                p = sharding.unshard(p, sp, ctx).cpu()
+                if rank0:
+                    w = want_g[name].float()
+                    tol = GRAD_EPS * BF16_EPS * max(float(w.abs().max()),
+                                                    1e-30)
+                    shares[name] = float((g.float() - w).abs().max()) / tol
+                    finite = finite and bool(torch.isfinite(g).all())
+                    pdiff = max(pdiff, float((p - want_p[name]).abs().max()))
+            if rank0:
+                worst = max(shares, key=shares.get)
+                rec.update(worst_leaf=worst, worst_share=shares[worst],
+                           finite=finite, param_max_diff=pdiff,
+                           loss_share=abs(rec["loss"] - rec["one_card_loss"])
+                           / (TOL_EPS * BF16_EPS
+                              * abs(rec["one_card_loss"])))
+        del grads
+    rec.update(placed_bitwise=placed, step_s=walls, launches=launches,
+               traffic=traffic,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    torch.distributed.barrier()
+    rec["case_s"] = time.perf_counter() - t_case
+    return rec
+
+
+def _elastic_check(ckpt_dir, ctx) -> dict:
+    """The launcher's last checkpoint restored onto ``ctx``'s mesh: every
+    rank's blocks gathered back equal, on rank 0, the whole leaves as
+    ``ckpt.load`` assembles them, bitwise."""
+    from repro_torch.checkpoint import ckpt, elastic
+    from repro_torch.train.optimizer import tree_leaves
+    from repro_torch.train.train_step import unshard_state
+    model = build_model(get_config("smollm-360m"))
+    state, step = elastic.restore_elastic(ckpt_dir, model, ctx)
+    gathered = unshard_state(state, model, ctx)
+    rec = dict(step=step, leaves=len(tree_leaves(state.params)))
+    if ctx.mesh.rank == 0:
+        whole, _ = ckpt.load(ckpt_dir, step)
+        rec["whole_bitwise"] = all(
+            torch.equal(a.cpu(), b) for tree, ref in zip(
+                (gathered.params, gathered.opt.mu, gathered.opt.nu),
+                (whole[".params"], whole[".opt"][".mu"],
+                 whole[".opt"][".nu"]))
+            for a, b in zip(tree_leaves(tree), tree_leaves(ref))) and \
+            int(gathered.opt.step) == int(whole[".opt"][".step"])
+    torch.distributed.barrier()
+    return rec
+
+
+def _mesh_rank(rank, world, ckpt_dir, out_dir) -> None:
+    """Phase j on one rank: the elastic restore onto (4, 1), then every
+    case of :data:`MESH_CASES`; each rank writes its records."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import sharding
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meshes = {}
+
+    def ctx_of(shape):
+        if shape not in meshes:
+            meshes[shape] = sharding.from_mesh(mesh_mod.init_mesh(
+                shape, ("data", "model")))
+        return meshes[shape]
+    out = {"elastic": _elastic_check(ckpt_dir, ctx_of(ELASTIC_MESH)),
+           "steps": []}
+    if rank == 0:
+        log(f"mesh: rank 0: elastic restore onto {ELASTIC_MESH} checked")
+    torch.cuda.empty_cache()
+    for case in MESH_CASES:
+        ctx = ctx_of(case[2])
+        out["steps"].append(_mesh_step_case(case, ctx))
+        out["transport"] = sharding.transport(ctx, ctx.mesh.device)
+        out["backend"] = ctx.mesh.backend
+        torch.cuda.empty_cache()
+        if rank == 0:
+            log(f"mesh: rank 0: {case[0]} on {case[2]} done in "
+                f"{out['steps'][-1]['case_s']:.1f} s")
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump(out, f)
+
+
+def phase_mesh() -> dict:
+    """Phase j, the multi-device path: the training launcher at full width
+    and depth on a (2, 2) mesh (a failure, a restart, the replay bitwise),
+    its last checkpoint restored onto (4, 1) and onto one card bitwise,
+    then one sharded step of each of :data:`MESH_CASES` against one card's
+    and timed steps; four ranks, NCCL with a card each, gloo with the
+    tensors staged through host memory where they share cards."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import ckpt, elastic
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch import train as train_launcher_mod
+    from repro_torch.train.optimizer import tree_leaves
+    t0 = time.perf_counter()
+    cards = torch.cuda.device_count()
+    world = 4
+    backend = mesh_mod.backend_for("cuda", world)
+    log(f"mesh: {world} ranks on {cards} card(s), backend {backend}"
+        + ("" if backend == "nccl" else ", tensors staged through host "
+           "memory (transport=host-staged)"))
+    ckpt_dir = tempfile.mkdtemp(prefix="repro_torch_mesh_")
+    out_dir = tempfile.mkdtemp(prefix="repro_torch_mesh_out_")
+    cfg = get_config("smollm-360m")
+    try:
+        argv = MESH_ARGV + ["--ckpt-dir", ckpt_dir]
+        log(f"mesh: launcher {' '.join(argv)}")
+        out = train_launcher_mod.main(argv)
+        rep = out["report"]
+        first = [out["losses"][s][0] for s in sorted(out["losses"])]
+        replayed = {s: v for s, v in out["losses"].items() if len(v) > 1}
+        bitwise = {s: v[0] == v[1] for s, v in replayed.items()}
+        want = step_launches(cfg)
+        if rep.restarts != 1 or rep.restored_steps != [1] or \
+                sorted(replayed) != [2] or not all(bitwise.values()) \
+                or not first[-1] < first[0] or \
+                any(n != want for n in out["launches"]):
+            raise AssertionError(
+                f"mesh launcher: restarts {rep.restarts}, restored "
+                f"{rep.restored_steps}, replayed {replayed}, losses {first}, "
+                f"launches {out['launches']} (want {want} a step)")
+        per_step = [sum(t[k] for k in ("all_reduce", "all_gather"))
+                    for t in out["traffic"]]
+        launcher = dict(losses=first, replayed=replayed,
+                        replay_bitwise=bitwise,
+                        median_step_s=out["median_step_s"],
+                        tokens_per_s=out["tokens_per_step"]
+                        / out["median_step_s"], peak_gib=out["peak_gib"],
+                        launches_per_step=want, step_s=out["step_s"],
+                        wall_s=out["wall_s"], backend=out["backend"],
+                        transport=out["transport"],
+                        collective_bytes_per_step=sorted(per_step)[
+                            len(per_step) // 2],
+                        collective_calls_per_step=out["traffic"][0]["calls"])
+        log(f"mesh: launcher --mesh 2,2 (smollm-360m, 32 layers, 8 x 512 "
+            f"tokens): loss {first[0]:.4f} -> {first[-1]:.4f}, one restart "
+            f"from step 1, replayed step 2 bitwise {bitwise}; median "
+            f"step {1e3 * launcher['median_step_s']:.1f} ms "
+            f"({launcher['tokens_per_s']:.0f} tokens/s), rank 0 peak "
+            f"{out['peak_gib']:.2f} GiB, {want} launches a step on each "
+            f"rank, collectives {launcher['collective_bytes_per_step'] / 2**30:.3f} "
+            f"GiB in {launcher['collective_calls_per_step']} calls a step "
+            f"on rank 0; backend {out['backend']}, transport "
+            f"{out['transport']} [{card_line()}]")
+        log(f"mesh: this process holds "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB of the card "
+            f"({torch.cuda.memory_reserved() / 2**30:.2f} reserved) as the "
+            f"ranks start")
+        # four ranks share one card's memory where there is one card
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                              "expandable_segments:True")
+        mesh_mod.spawn(_mesh_rank, world, (ckpt_dir, out_dir),
+                       device="cuda")
+        ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
+                 for r in range(world)]
+        # the same checkpoint onto one card
+        model = build_model(cfg)
+        state, step = elastic.restore_elastic(ckpt_dir, model, None,
+                                              device=DEV)
+        whole, _ = ckpt.load(ckpt_dir, step)
+        one_ok = all(torch.equal(a.cpu(), b) for a, b in zip(
+            tree_leaves(state.params) + tree_leaves(state.opt.mu)
+            + tree_leaves(state.opt.nu),
+            tree_leaves(whole[".params"]) + tree_leaves(
+                whole[".opt"][".mu"]) + tree_leaves(whole[".opt"][".nu"])))
+        del state, whole
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+        shutil.rmtree(out_dir, ignore_errors=True)
+    el = [r["elastic"] for r in ranks]
+    if not (one_ok and el[0]["whole_bitwise"]):
+        raise AssertionError(f"mesh: elastic restore not bitwise: one card "
+                             f"{one_ok}, {ELASTIC_MESH} {el[0]}")
+    log(f"mesh: the launcher's step-{el[0]['step']} checkpoint restored "
+        f"onto one card and onto {ELASTIC_MESH}: every leaf bitwise "
+        f"({el[0]['leaves']} parameter leaves, moments too)")
+    steps = []
+    for i, case in enumerate(MESH_CASES):
+        recs = [r["steps"][i] for r in ranks]
+        r0 = recs[0]
+        bad = [r for r in recs if not r["placed_bitwise"]
+               or any(n != r["want_launches"] for n in r["launches"])]
+        if bad or r0["loss_share"] > 1.0 or r0["worst_share"] > 1.0 or \
+                not r0["finite"] or r0["param_max_diff"] >= 5e-2:
+            raise AssertionError(f"mesh step {case}: {json.dumps(r0)[:3000]}")
+        med = [sorted(r["step_s"][1:])[len(r["step_s"][1:]) // 2]
+               for r in recs]
+        byt = [sum(r["traffic"][-1][k] for k in ("all_reduce", "all_gather"))
+               for r in recs]
+        rec = dict(arch=case[0], layers=case[1], mesh=list(case[2]),
+                   tokens_per_rank=r0["tokens_per_rank"],
+                   loss=r0["loss"], one_card_loss=r0["one_card_loss"],
+                   loss_share=r0["loss_share"], worst_leaf=r0["worst_leaf"],
+                   worst_share=r0["worst_share"],
+                   param_max_diff=r0["param_max_diff"],
+                   grad_norm=r0["grad_norm"],
+                   one_card_grad_norm=r0["one_card_grad_norm"],
+                   launches_per_rank_step=r0["launches"][0],
+                   median_step_s=max(med), first_step_s=r0["step_s"][0],
+                   one_card_step_s=r0["one_card_s"],
+                   peak_gib_per_rank=[r["peak_gib"] for r in recs],
+                   collective_bytes_per_rank_step=byt,
+                   collective_calls_per_step=r0["traffic"][-1]["calls"],
+                   case_s=r0["case_s"])
+        steps.append(rec)
+        log(f"mesh: {case[0]} {case[1]} layers on {case[2]}, "
+            f"{rec['tokens_per_rank']} tokens a rank: loss "
+            f"{rec['loss']:.6f} sharded, {rec['one_card_loss']:.6f} one card "
+            f"({rec['loss_share']:.3f} of the bound); worst gradient leaf "
+            f"{rec['worst_leaf']} at {rec['worst_share']:.3f} of {GRAD_EPS} "
+            f"bf16 epsilons; parameters after the step within "
+            f"{rec['param_max_diff']:.2e}; grad norm {rec['grad_norm']:.6f} "
+            f"vs {rec['one_card_grad_norm']:.6f}; placements bitwise; "
+            f"launches {rec['launches_per_rank_step']} a rank a step; step "
+            f"wall {1e3 * rec['median_step_s']:.1f} ms after the first "
+            f"{1e3 * rec['first_step_s']:.1f} ms (one card "
+            f"{1e3 * rec['one_card_step_s']:.1f} ms, its first call); peak "
+            f"{max(rec['peak_gib_per_rank']):.2f} GiB a rank; collectives "
+            f"{max(byt) / 2**30:.3f} GiB in {rec['collective_calls_per_step']} "
+            f"calls a rank a step; the case {rec['case_s']:.1f} s "
+            f"[{card_line()}]")
+    rec = dict(world=world, cards=cards, backend=ranks[0]["backend"],
+               transport=ranks[0]["transport"], launcher=launcher,
+               elastic=dict(one_card=one_ok, mesh=list(ELASTIC_MESH),
+                            step=el[0]["step"]),
+               steps=steps, wall_s=time.perf_counter() - t0)
+    log(f"mesh: phase wall {rec['wall_s']:.1f} s")
+    return rec
+
+
 def lm_kernel_records(lm_records, serving):
     """The ``{"kernels": [...]}`` entries of the serving slices' kernels:
     times at the largest shape (and the path's), launches from the
@@ -3386,6 +3731,8 @@ def main() -> None:
                     help="only run the streamed and perturbation phases")
     ap.add_argument("--training", action="store_true",
                     help="only run the training phase")
+    ap.add_argument("--mesh", action="store_true",
+                    help="only run the multi-device phase")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -3417,6 +3764,14 @@ def main() -> None:
         print(card)
         print(json.dumps({"training": records}))
         return
+    if args.mesh:
+        _build.build(["flash_attention", "rglru_scan", "ssd_scan"])
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        records = phase_mesh()
+        print(card)
+        print(json.dumps({"mesh": records}))
+        return
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
@@ -3439,6 +3794,7 @@ def main() -> None:
     serving = phase_serving()
     serving.update(phase_new_families())
     training = phase_training()
+    mesh = phase_mesh()
 
     big = records["2^20 cells"]
     #: the main-path run each kernel's launch count is read from
@@ -3506,7 +3862,16 @@ def main() -> None:
     for rec in kernels:
         if rec["name"] in LM_KERNELS:
             rec["training"] = training_kernel_record(rec["name"], training)
+            rec["mesh"] = {
+                "launches_per_rank_step": {
+                    f"{st['arch']} {st['mesh']}":
+                        st["launches_per_rank_step"][rec["name"]]
+                    for st in mesh["steps"]},
+                "launcher_launches_per_rank_step":
+                    mesh["launcher"]["launches_per_step"][rec["name"]],
+                "backend": mesh["backend"], "transport": mesh["transport"]}
     log(f"streaming [{card}]: {json.dumps(stream)}")
+    log(f"mesh [{card}]: {json.dumps(mesh)}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

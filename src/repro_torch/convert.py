@@ -12,7 +12,8 @@ continue in the other.  Training states go both ways: :func:`train_state`
 carries a reference ``TrainState`` (or a checkpoint of one, read by
 :func:`repro_torch.checkpoint.ckpt.load`) into the port, and
 :func:`to_reference` lays the port's out as the reference's, to save a
-checkpoint the reference restores.
+checkpoint the reference restores; under a mesh (``ctx``) the first
+gives each rank its blocks, and the second gathers the blocks whole first.
 """
 from __future__ import annotations
 
@@ -140,28 +141,31 @@ def _field(node, name: str):
     return getattr(node, name)
 
 
-def train_state(cfg, tree, device=None):
+def train_state(cfg, tree, device=None, ctx=None):
     """The reference's ``TrainState`` (numpy leaves: ``params``, ``opt``
     with ``step``, ``mu``, ``nu``, and ``error_fb`` or None), or the same
     leaves as :func:`repro_torch.checkpoint.ckpt.load` reads them from a
     reference checkpoint, as the port's ``TrainState`` on ``device``:
     stacked ``[L, ...]`` blocks unstacked as :func:`model_params` does,
-    values and dtypes kept."""
+    values and dtypes kept; under a mesh, this rank's blocks."""
+    from repro_torch.models.model import Model
+    from repro_torch.models.sharding import active
     from repro_torch.train.optimizer import AdamWState
-    from repro_torch.train.train_step import TrainState
+    from repro_torch.train.train_step import TrainState, shard_state
     dev = device_mod.resolve(device)
     opt, efb = _field(tree, "opt"), _field(tree, "error_fb")
 
     def tensors(node):
         return model_params(cfg, node, dev)
     step = _field(opt, "step")
-    return TrainState(
+    state = TrainState(
         params=tensors(_field(tree, "params")),
         opt=AdamWState(step=torch.as_tensor(
             np.array(step) if not isinstance(step, torch.Tensor)
             else step).to(dev, torch.int32),
             mu=tensors(_field(opt, "mu")), nu=tensors(_field(opt, "nu"))),
         error_fb=None if efb is None else tensors(efb))
+    return shard_state(state, Model(cfg), ctx) if active(ctx) else state
 
 
 def _stacked(cfg) -> bool:
@@ -206,13 +210,18 @@ def _ref_params(cfg, params):
     return walk(out)
 
 
-def to_reference(cfg, state):
+def to_reference(cfg, state, ctx=None):
     """The port's ``TrainState`` in the reference's layout, numpy leaves:
     the blocks of a model the reference scans stacked along ``[L, ...]``
     again.  :func:`repro_torch.checkpoint.ckpt.save` of it writes the
-    leaf names the reference's ``ckpt.restore`` looks for."""
+    leaf names the reference's ``ckpt.restore`` looks for.  Under a mesh
+    (``state`` the rank's blocks) every rank gathers them whole first."""
+    from repro_torch.models.model import Model
+    from repro_torch.models.sharding import active
     from repro_torch.train.optimizer import AdamWState
-    from repro_torch.train.train_step import TrainState
+    from repro_torch.train.train_step import TrainState, unshard_state
+    if active(ctx):
+        state = unshard_state(state, Model(cfg), ctx)
     return TrainState(
         params=_ref_params(cfg, state.params),
         opt=AdamWState(step=_numpy(state.opt.step),

@@ -20,6 +20,10 @@ layer (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
 
 Caches, one per decoder layer: ``{"self": {"k", "v"}, "cross": {"k",
 "v"}}``.
+
+Under a mesh with one 'model' rank (``ShardingCtx``) a training forward
+takes the data rank's rows and gathers the FSDP leaves over 'data': those
+outside the layers at the start, each layer's inside the layer.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import sharding
 from repro_torch.models.layers import (
     COMPUTE_DTYPE, cast, embed, mlp, mlp_schema, rmsnorm, rmsnorm_schema,
     unembed,
@@ -84,21 +89,31 @@ def _enc_block(lp, x, cfg: ModelConfig, positions):
     return x + mlp(lp["mlp"], h2, cfg)
 
 
-def _layer(fn, remat: bool, *args):
-    """``fn(*args)``, rematerialized in the backward where ``remat``."""
+def _layer(fn, remat: bool, *args, specs=None, ctx=None):
+    """``fn(*args)`` (``args[0]`` the layer's parameters, gathered over
+    'data' under a mesh), rematerialized in the backward where
+    ``remat``."""
+    if specs is not None:
+        inner = fn
+
+        def fn(lp, *rest):
+            return inner(sharding.fsdp(lp, specs, ctx), *rest)
     if remat:
         return checkpoint(fn, *args, use_reentrant=False)
     return fn(*args)
 
 
-def encode(params, frames, cfg: ModelConfig, remat: bool = False):
+def encode(params, frames, cfg: ModelConfig, remat: bool = False,
+           specs=None, ctx=None):
     """frames: [B, Se, d] precomputed frontend embeddings -> [B, Se, d]."""
     x = torch.matmul(cast(frames), cast(params["frontend"]["adapter"]))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     blocks = params["encoder"]["blocks"]
     fn = functools.partial(_enc_block, cfg=cfg, positions=positions)
     for i in range(cfg.encoder_layers):
-        x = _layer(fn, remat, blocks[f"layer_{i:02d}"], x)
+        name = f"layer_{i:02d}"
+        x = _layer(fn, remat, blocks[name], x, ctx=ctx, specs=None
+                   if specs is None else specs["encoder"]["blocks"][name])
     return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
 
 
@@ -147,16 +162,31 @@ def _dec_block(lp, x, enc, cfg: ModelConfig, *, mode: str, positions,
 
 
 def forward_encdec(params, tokens, cfg: ModelConfig, *, mode: str,
-                   frames=None, caches=None, positions=None):
+                   frames=None, caches=None, positions=None, ctx=None):
     """train: tokens [B, St], frames [B, Se, d] -> (logits [B, St, V], aux
     f32 zero); prefill: the same inputs -> (last logits [B, V], caches);
     decode: tokens [B, 1], caches, positions [B, 1] -> (logits [B, V],
     caches)."""
+    specs = None
+    if sharding.active(ctx):
+        if mode != "train" or ctx.tp_size() > 1:
+            raise NotImplementedError(
+                f"{cfg.name}: the port shards an encoder-decoder model's "
+                f"training over 'data' only (ROADMAP.md queue 1 item 4)")
+        specs = sharding.tree_specs(encdec_schema(cfg), ctx)
+        top = {k: v for k, v in params.items()
+               if k not in ("encoder", "decoder")}
+        params = dict(
+            sharding.fsdp(top, specs, ctx),
+            encoder=dict(params["encoder"], final_norm=sharding.fsdp(
+                params["encoder"]["final_norm"],
+                specs["encoder"]["final_norm"], ctx)),
+            decoder=params["decoder"])
     x = embed(params["embedding"], tokens)
     enc = None
     if mode in ("train", "prefill"):
         remat = cfg.remat and mode == "train"
-        enc = encode(params, frames, cfg, remat=remat)
+        enc = encode(params, frames, cfg, remat=remat, specs=specs, ctx=ctx)
         positions = torch.arange(x.shape[1], device=x.device)[None, :]
     elif mode != "decode":
         raise ValueError(f"mode {mode!r} not in ('train', 'prefill', "
@@ -165,8 +195,10 @@ def forward_encdec(params, tokens, cfg: ModelConfig, *, mode: str,
         fn = functools.partial(_dec_block, enc=enc, cfg=cfg, mode="train",
                                positions=positions)
         for i in range(cfg.num_layers):
-            x = _layer(fn, remat, params["decoder"]["blocks"][
-                f"layer_{i:02d}"], x)[0]
+            name = f"layer_{i:02d}"
+            x = _layer(fn, remat, params["decoder"]["blocks"][name], x,
+                       ctx=ctx, specs=None if specs is None
+                       else specs["decoder"]["blocks"][name])[0]
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
         return unembed(params["embedding"], x, cfg), torch.zeros(
             (), dtype=torch.float32, device=x.device)

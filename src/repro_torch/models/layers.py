@@ -6,6 +6,13 @@ the reference; RMSNorm and RoPE compute in f32, everything else on bf16
 operands.  The gated MLP is ``silu(g) * h`` as the reference computes it
 (its configs call it GeGLU; the code is SwiGLU), and the plain MLP uses
 the tanh GELU, ``jax.nn.gelu``'s default.
+
+Under a ``ShardingCtx`` with 'model' ranks the embedding is a
+vocab-parallel lookup, the unembedding gives each rank its vocab columns,
+and the MLP is column-parallel in ``wi``/``wg`` and row-parallel in
+``wo``; the parameters passed are the rank's 'model' blocks (FSDP already
+gathered), and the row-parallel partial products are summed in f32 and
+rounded to bf16 once, as one device's product accumulates in f32.
 """
 from __future__ import annotations
 
@@ -13,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharding
 from repro_torch.models.schema import Leaf
 
 COMPUTE_DTYPE = torch.bfloat16
@@ -46,24 +54,44 @@ def embedding_schema(cfg: ModelConfig):
     return s
 
 
-def embed(params, tokens):
+def vocab_parallel(cfg: ModelConfig, ctx) -> bool:
+    """Whether the vocab dimension is split over 'model' (its spec's
+    divisibility guard)."""
+    return sharding.active(ctx) and ctx.tp_size() > 1 and \
+        cfg.padded_vocab % ctx.tp_size() == 0
+
+
+def embed(params, tokens, cfg: ModelConfig = None, ctx=None):
     """tokens ``[B, S]`` integer -> ``[B, S, d]`` bf16.  Gathers the rows
     and casts them (the reference casts the whole table, then gathers:
-    the same values)."""
-    return cast(params["embed"][tokens])
+    the same values).  Vocab-parallel: each rank looks up the tokens in
+    its rows (zeros elsewhere), and the ranks' rows are summed."""
+    table = params["embed"]
+    if cfg is None or not vocab_parallel(cfg, ctx):
+        return cast(table[tokens])
+    v0 = ctx.tp_index() * table.shape[0]
+    local = tokens - v0
+    mine = (local >= 0) & (local < table.shape[0])
+    rows = cast(table[torch.where(mine, local, 0)]).float()
+    rows = rows * mine[..., None]
+    return sharding.leave_tp(rows, ctx).to(COMPUTE_DTYPE)
 
 
-def unembed(params, x, cfg: ModelConfig):
+def unembed(params, x, cfg: ModelConfig, ctx=None):
     """x ``[B, S, d]`` bf16 -> logits ``[B, S, padded_vocab]`` bf16, the
-    padding columns set to -1e9."""
+    padding columns set to -1e9; vocab-parallel, this rank's columns."""
     if cfg.tie_embeddings:
         w = cast(params["embed"]).T
     else:
         w = cast(params["unembed"])
+    v0 = 0
+    if vocab_parallel(cfg, ctx):
+        x = sharding.enter_tp(x, ctx)
+        v0 = ctx.tp_index() * w.shape[1]
     logits = torch.matmul(x, w)
     if cfg.padded_vocab != cfg.vocab_size:
         # mask padding columns so softmax/argmax never see them
-        vidx = torch.arange(cfg.padded_vocab, device=logits.device)
+        vidx = v0 + torch.arange(w.shape[1], device=logits.device)
         logits = torch.where(vidx < cfg.vocab_size, logits,
                              torch.tensor(-1e9, dtype=logits.dtype,
                                           device=logits.device))
@@ -81,13 +109,26 @@ def mlp_schema(cfg: ModelConfig):
     return s
 
 
-def mlp(params, x, cfg: ModelConfig):
+def row_parallel(h, w, ctx):
+    """``h @ w`` of a rank's partial operands summed over 'model' in f32,
+    rounded to bf16 once."""
+    part = torch.matmul(h.float(), cast(w).float())
+    return sharding.leave_tp(part, ctx).to(COMPUTE_DTYPE)
+
+
+def mlp(params, x, cfg: ModelConfig, ctx=None):
+    split = sharding.active(ctx) and ctx.tp_size() > 1 and \
+        cfg.d_ff % ctx.tp_size() == 0
+    if split:
+        x = sharding.enter_tp(x, ctx)
     h = torch.matmul(x, cast(params["wi"]))
     if cfg.mlp_gated:
         g = torch.matmul(x, cast(params["wg"]))
         h = F.silu(g) * h
     else:
         h = F.gelu(h, approximate="tanh")
+    if split:
+        return row_parallel(h, params["wo"], ctx)
     return torch.matmul(h, cast(params["wo"]))
 
 

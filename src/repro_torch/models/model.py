@@ -6,6 +6,14 @@ kernels' plain versions, on the card through each kernel wrapper's
 ``torch.autograd.Function`` (the kernel forward; backward by recompute of
 the plain attention and chunked SSD forms, and the RG-LRU adjoint scan on
 the same kernel), with every layer rematerialized where ``cfg.remat``.
+
+Under a mesh (``ctx``, :mod:`repro_torch.models.sharding`) the parameters
+are each rank's blocks (:meth:`Model.shard_params` of one full tree) and
+the batch its rows; the loss is the global one on every rank: the masked
+sums and counts are summed over the data axes, the vocab-parallel max and
+log-sum-exp over 'model', and the moe ``aux`` averaged over the data
+ranks.  The dense and moe families run tensor parallel; the others only
+under one 'model' rank.
 """
 from __future__ import annotations
 
@@ -17,23 +25,46 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import schema as schema_mod
+from repro_torch.models import sharding
 from repro_torch.models import transformer as tf_mod
+from repro_torch.models.layers import vocab_parallel
+
+#: the families whose layers run tensor parallel over 'model'
+TP_FAMILIES = ("dense", "moe")
 
 
-def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4):
+def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4,
+                  ctx=None, split_vocab: bool = False):
     """Mean CE over valid tokens; f32; optional z-loss regularizer.  A
-    masked label may be negative (it is read as 0 and weighs nothing)."""
+    masked label may be negative (it is read as 0 and weighs nothing).
+    Under a mesh: ``logits`` the rank's rows (and, ``split_vocab``, its
+    vocab columns), the mean over every rank's tokens."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        labels.long().clamp(min=0)[..., None])[..., 0]
+    labels = labels.long().clamp(min=0)
+    if split_vocab:
+        m = sharding.all_reduce(logits.detach().amax(dim=-1), ctx,
+                                ctx.tp_axis, "max")
+        lse = m + torch.log(sharding.leave_tp(
+            torch.exp(logits - m[..., None]).sum(dim=-1), ctx))
+        local = labels - ctx.tp_index() * logits.shape[-1]
+        mine = (local >= 0) & (local < logits.shape[-1])
+        gold = torch.gather(logits, -1, torch.where(mine, local, 0)[
+            ..., None])[..., 0]
+        gold = sharding.leave_tp(torch.where(mine, gold, 0.0), ctx)
+    else:
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None])[..., 0]
     nll = lse - gold
     if z_loss:
         nll = nll + z_loss * torch.square(lse)
     if mask is None:
         mask = torch.ones_like(nll)
     mask = mask.float()
-    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    total, count = torch.sum(nll * mask), torch.sum(mask)
+    if sharding.active(ctx):
+        total = sharding.reduce_dp(total, ctx)
+        count = sharding.all_reduce(count, ctx, ctx.dp_axes)
+    return total / torch.clamp(count, min=1.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,29 +85,60 @@ class Model:
     def param_count(self) -> int:
         return schema_mod.param_count(self.schema)
 
+    def param_specs(self, ctx):
+        """The spec of every parameter leaf (the reference's
+        ``PartitionSpec`` entries) on ``ctx``'s mesh."""
+        return sharding.tree_specs(self.schema, ctx)
+
+    def shard_params(self, params, ctx):
+        """This rank's block of every leaf of a full parameter tree (from
+        :meth:`init` or :func:`repro_torch.convert.model_params`)."""
+        return sharding.shard_tree(params, self.param_specs(ctx), ctx)
+
+    def check_mesh(self, ctx) -> None:
+        """Raise where the port cannot run this family on ``ctx``."""
+        if not sharding.active(ctx):
+            return
+        if ctx.tp_size() > 1 and self.cfg.family not in TP_FAMILIES:
+            raise NotImplementedError(
+                f"{self.cfg.name}: the {self.cfg.family} family runs under "
+                f"one 'model' rank only; its tensor-parallel layers (lru, "
+                f"ssm_inner, cross attention) are ROADMAP.md queue 1 item "
+                f"4's next slice")
+        if ctx.sequence_parallel:
+            raise NotImplementedError(
+                "sequence_parallel: the port keeps activations replicated "
+                "over 'model' (ROADMAP.md queue 1 item 4)")
+
     # -- forwards --------------------------------------------------------------
-    def loss(self, params, batch):
+    def loss(self, params, batch, ctx=None):
         """-> (loss, metrics).  ``batch``: ``tokens`` and ``labels`` [B, S]
         int, and ``patch_embeds`` [B, P, d] (vision) or ``frames`` [B, Se,
         d] (encoder-decoder); labels are aligned with the token positions
         of the logits (a vision model's patch positions are sliced off).
         The loss is next-token CE (labels < 0 masked) plus 0.01 x the moe
-        load-balancing loss."""
+        load-balancing loss.  Under a mesh ``params`` and ``batch`` are the
+        rank's; the loss and metrics are the global ones."""
         cfg = self.cfg
+        self.check_mesh(ctx)
         if cfg.is_encdec:
             logits, aux = encdec_mod.forward_encdec(
                 params, batch["tokens"], cfg, mode="train",
-                frames=batch["frames"])
+                frames=batch["frames"], ctx=ctx)
         else:
             pe = batch.get("patch_embeds") if cfg.frontend == "vision" \
                 else None
             logits, aux = tf_mod.forward(params, batch["tokens"], cfg,
-                                         mode="train", patch_embeds=pe)
+                                         mode="train", patch_embeds=pe,
+                                         ctx=ctx)
             if pe is not None:
                 logits = logits[:, pe.shape[1]:, :]
+        if sharding.active(ctx):
+            aux = sharding.reduce_dp(aux, ctx) / ctx.dp_size()
         labels = batch["labels"]
         ce = cross_entropy(logits[:, :-1, :], labels[:, 1:],
-                           mask=(labels[:, 1:] >= 0))
+                           mask=(labels[:, 1:] >= 0), ctx=ctx,
+                           split_vocab=vocab_parallel(cfg, ctx))
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params, tokens, pad_cache_to: Optional[int] = None, *,

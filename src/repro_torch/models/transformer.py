@@ -23,6 +23,14 @@ An moe layer's recompute takes the expert choices its forward made
 
 Decode writes the new token's K/V into the attention caches in place (it
 saves a copy of every cache per step) and returns the caches.
+
+A training forward under a ``ShardingCtx`` (``models.sharding``) takes
+each rank's blocks of the parameters and its rows of the batch: the
+leaves outside the layers are gathered over 'data' (FSDP) at the start,
+each layer's inside the layer (inside its rematerialization too, so a
+layer's gathered weights live only while it runs), and the dense and moe
+layers run tensor parallel over 'model' (``attention``, ``layers``,
+``moe``).
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import sharding
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     COMPUTE_DTYPE, cast, embed, embedding_schema, mlp, mlp_schema, rmsnorm,
@@ -104,11 +113,12 @@ def _ring_gather(kv, window: int):
 
 
 def attn_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
-               cache=None, routing=None):
+               cache=None, routing=None, ctx=None):
     """-> (x, new cache (None in train mode), moe aux loss or None)."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     window = cfg.window if cfg.attention == "local" else 0
-    q, k, v = attn.qkv_project(lp["attn"], h, cfg, positions=positions)
+    q, k, v = attn.qkv_project(lp["attn"], h, cfg, positions=positions,
+                               ctx=ctx)
 
     if mode == "decode":
         b = x.shape[0]
@@ -129,7 +139,8 @@ def attn_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
             o = attn.attend_decode(q, kc, vc, cache_len=pos + 1)
         new_cache = {"k": kc, "v": vc}
     else:
-        o = attn.attend_prefill(q, k, v, causal=True, window=window)
+        o = attn.attend_prefill(q, k, v, causal=True, window=window,
+                                cfg=cfg, ctx=ctx)
         if mode == "train":
             new_cache = None
         elif window > 0:
@@ -138,12 +149,12 @@ def attn_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
         else:
             new_cache = {"k": k, "v": v}
 
-    x = x + attn.out_project(lp["attn"], o, cfg)
+    x = x + attn.out_project(lp["attn"], o, cfg, ctx)
     h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
     if "moe" in lp:
-        m, aux = moe_mod.moe_block(lp["moe"], h2, cfg, routing)
+        m, aux = moe_mod.moe_block(lp["moe"], h2, cfg, routing, ctx)
         return x + m, new_cache, aux
-    return x + mlp(lp["mlp"], h2, cfg), new_cache, None
+    return x + mlp(lp["mlp"], h2, cfg, ctx), new_cache, None
 
 
 def rec_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
@@ -181,19 +192,35 @@ def _cache_init(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 
 # -- model forward --------------------------------------------------------------
 
+def _sharded_layer(fn, specs, ctx):
+    """``fn(lp, x)`` on the layer's parameters gathered over 'data'."""
+    return lambda lp, x: fn(sharding.fsdp(lp, specs, ctx), x)
+
+
 def forward(params, tokens, cfg: ModelConfig, *, mode: str, caches=None,
-            positions=None, patch_embeds=None):
+            positions=None, patch_embeds=None, ctx=None):
     """Shared forward.
 
     train:   tokens [B, S] (a vision model: and optionally patch_embeds
-             [B, P, d], prepended) -> (logits [B, P+S, V], aux f32 scalar)
+             [B, P, d], prepended) -> (logits [B, P+S, V], aux f32 scalar;
+             under a mesh: the rank's rows and vocab columns, its aux)
     prefill: the same inputs -> (last_logits [B, V], caches)
     decode:  tokens [B, 1], positions [B, 1] = current absolute position
              per sequence -> (logits [B, V], caches)
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    x = embed(params["embedding"], tokens)
+    specs = None
+    if sharding.active(ctx):
+        if mode != "train":
+            raise NotImplementedError(
+                f"mode {mode!r} under a mesh: the port shards training "
+                f"only (ROADMAP.md queue 1 item 4)")
+        specs = sharding.tree_specs(model_schema(cfg), ctx)
+        top = {k: v for k, v in params.items() if k != "blocks"}
+        params = dict(sharding.fsdp(top, specs, ctx),
+                      blocks=params["blocks"])
+    x = embed(params["embedding"], tokens, cfg, ctx)
     if patch_embeds is not None and mode != "decode":
         pe = torch.matmul(cast(patch_embeds),
                           cast(params["frontend"]["proj"]))
@@ -205,10 +232,16 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, caches=None,
     if mode == "train":
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i, kind in enumerate(cfg.layer_kinds()):
+            name = f"layer_{i:02d}"
+            kw = {"routing": {}} if kind == "moe" else {}
+            if kind in ("attn", "moe"):
+                kw["ctx"] = ctx
             fn = functools.partial(
                 _BLOCK_FNS[kind], cfg=cfg, mode="train", positions=positions,
-                **({"routing": {}} if kind == "moe" else {}))
-            lp = params["blocks"][f"layer_{i:02d}"]
+                **kw)
+            if specs is not None:
+                fn = _sharded_layer(fn, specs["blocks"][name], ctx)
+            lp = params["blocks"][name]
             if cfg.remat:
                 x, _, a = checkpoint(fn, lp, x, use_reentrant=False)
             else:
@@ -216,7 +249,7 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, caches=None,
             if a is not None:
                 aux = aux + a
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return unembed(params["embedding"], x, cfg), aux
+        return unembed(params["embedding"], x, cfg, ctx), aux
 
     new_caches = {}
     for i, kind in enumerate(cfg.layer_kinds()):

@@ -14,6 +14,11 @@ A failure before the first checkpoint restarts from the state ``run`` was
 given: the train step is functional, so that state is still the initial
 one.  The reference keeps the state trained so far there and replays
 steps 0.. on it (ROADMAP.md queue 3, R9).
+
+Under a mesh (``ctx`` and the state's ``specs``) every rank runs the loop:
+each saves and restores its own blocks (``ckpt``), a failure injected at
+a step fails every rank there, and all restart from the last committed
+step; each rank touches its own heartbeat file (``<path>.rank<r>``).
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 from repro_torch.checkpoint import ckpt
+from repro_torch.models import sharding
 
 
 class SimulatedFailure(RuntimeError):
@@ -51,13 +57,19 @@ class RunReport:
 
 def run(train_step: Callable, state, batch_for_step: Callable,
         cfg: DriverConfig,
-        on_step: Optional[Callable[[int, Dict], None]] = None) -> RunReport:
+        on_step: Optional[Callable[[int, Dict], None]] = None,
+        ctx=None, specs=None) -> RunReport:
     """Drive training with checkpoint/restart.
 
     train_step(state, batch) -> (state, metrics), leaving its input state
     as it was; batch_for_step(step) -> placed batch.  Restored leaves go
-    to the devices of ``state``'s.
+    to the devices of ``state``'s.  Under a mesh ``state`` is the rank's
+    blocks and ``specs`` their specs.
     """
+    placed = dict(ctx=ctx, specs=specs) if sharding.active(ctx) else {}
+    heartbeat = cfg.heartbeat_path
+    if heartbeat and placed:
+        heartbeat = f"{heartbeat}.rank{ctx.mesh.rank}"
     report = RunReport()
     fail_pending = set(cfg.fail_at_steps)
     step = 0
@@ -67,7 +79,7 @@ def run(train_step: Callable, state, batch_for_step: Callable,
     # resume if a checkpoint exists
     last = ckpt.latest_step(cfg.ckpt_dir)
     if last is not None:
-        state, _ = ckpt.restore(cfg.ckpt_dir, target=state)
+        state, _ = ckpt.restore(cfg.ckpt_dir, target=state, **placed)
         step = last + 1
         report.restored_steps.append(last)
 
@@ -78,8 +90,8 @@ def run(train_step: Callable, state, batch_for_step: Callable,
                 raise SimulatedFailure(f"injected failure at step {step}")
             batch = batch_for_step(step)
             state, metrics = train_step(state, batch)
-            if cfg.heartbeat_path:
-                with open(cfg.heartbeat_path, "w") as f:
+            if heartbeat:
+                with open(heartbeat, "w") as f:
                     f.write(f"{step} {time.time()}\n")
             if on_step is not None:
                 on_step(step, metrics)
@@ -87,7 +99,7 @@ def run(train_step: Callable, state, batch_for_step: Callable,
                 report.losses.append(float(metrics["loss"]))
             if (step + 1) % cfg.ckpt_every == 0 or step + 1 == cfg.total_steps:
                 ckpt.save(state, step, cfg.ckpt_dir,
-                          asynchronous=cfg.async_ckpt)
+                          asynchronous=cfg.async_ckpt, **placed)
             report.steps_run += 1
             step += 1
         except SimulatedFailure:
@@ -100,7 +112,7 @@ def run(train_step: Callable, state, batch_for_step: Callable,
             if last is None:
                 state, step = initial, 0     # restart from scratch
                 continue
-            state, _ = ckpt.restore(cfg.ckpt_dir, target=state)
+            state, _ = ckpt.restore(cfg.ckpt_dir, target=state, **placed)
             report.restored_steps.append(last)
             step = last + 1
     ckpt.wait()

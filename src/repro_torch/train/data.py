@@ -12,7 +12,9 @@ short deterministic motifs (so the model has learnable structure and the
 loss visibly falls).  Host-side numpy generation; :meth:`SyntheticLM.place`
 puts a batch on one explicit device (f32 arrays as bf16, as the
 reference's single-device ``place``; integers as int64, PyTorch's index
-type); :class:`Prefetcher` double-buffers it on a background thread.
+type), or under a mesh this rank's rows of it (f32 arrays as f32, as the
+reference places them on a mesh); :class:`Prefetcher` double-buffers it
+on a background thread.
 """
 from __future__ import annotations
 
@@ -26,6 +28,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.configs.shapes import ShapeSpec
+
+from repro_torch.models import sharding
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,15 +77,25 @@ class SyntheticLM:
             return {"tokens": tokens, "patch_embeds": pe, "labels": tokens}
         return {"tokens": tokens, "labels": tokens}
 
-    def place(self, batch: Dict[str, np.ndarray],
-              device) -> Dict[str, torch.Tensor]:
+    def place(self, batch: Dict[str, np.ndarray], device,
+              ctx=None) -> Dict[str, torch.Tensor]:
         """The batch as tensors on ``device``: f32 arrays as bf16,
-        integer arrays as int64."""
+        integer arrays as int64.  Under a mesh (``ctx``) this rank's rows
+        (the batch split over the data axes, which must divide it) and
+        f32 arrays as f32."""
         out = {}
         for k, v in batch.items():
+            if sharding.active(ctx):
+                n = ctx.dp_size()
+                if v.shape[0] % n:
+                    raise ValueError(f"batch of {v.shape[0]} rows does not "
+                                     f"split over {n} data ranks")
+                i = ctx.index_of(ctx.dp_axes)
+                v = v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
             if v.dtype == np.float32:
-                t = torch.from_numpy(np.ascontiguousarray(v)).to(
-                    torch.bfloat16)
+                t = torch.from_numpy(np.ascontiguousarray(v))
+                if not sharding.active(ctx):
+                    t = t.to(torch.bfloat16)
             else:
                 t = torch.from_numpy(np.ascontiguousarray(v, np.int64))
             out[k] = t.to(device)

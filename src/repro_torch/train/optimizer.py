@@ -6,6 +6,9 @@ structure (:func:`tree_map`).  The update is functional, as the
 reference's: it returns new tensors and leaves its inputs untouched, so
 a caller may keep an earlier state (the fault-tolerant loop keeps the
 initial one).  Every operation is the reference's, in its order, on f32.
+Under a mesh the leaves are each rank's blocks and the update is
+elementwise on them; only the clipping norm is global
+(:func:`global_norm` with the leaves' specs).
 """
 from __future__ import annotations
 
@@ -14,6 +17,8 @@ import math
 from typing import Any, Callable, List, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.models import sharding
 
 
 def tree_map(fn, tree, *rest):
@@ -59,10 +64,12 @@ class AdamW:
             nu=tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
                         params))
 
-    def update(self, grads, state: AdamWState, params
-               ) -> Tuple[Any, AdamWState, dict]:
+    def update(self, grads, state: AdamWState, params, ctx=None,
+               specs=None) -> Tuple[Any, AdamWState, dict]:
+        """One step; under a mesh ``ctx`` and the parameters' ``specs``
+        make the clipping norm the global one."""
         grads = tree_map(lambda g: g.float(), grads)
-        gnorm = global_norm(grads)
+        gnorm = global_norm(grads, ctx, specs)
         if self.grad_clip_norm is not None:
             scale = torch.clamp(self.grad_clip_norm
                                 / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -89,9 +96,23 @@ class AdamW:
             "grad_norm": gnorm, "lr": lr}
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(g.float()))
-                          for g in tree_leaves(tree)))
+def global_norm(tree, ctx=None, specs=None) -> torch.Tensor:
+    """The 2-norm of every leaf together.  Under a mesh (each leaf a
+    rank's block, ``specs`` its spec) each leaf's sum of squares is summed
+    over the axes it is sharded on, once per set of axes, and not over
+    those it is replicated on."""
+    if not sharding.active(ctx):
+        return torch.sqrt(sum(torch.sum(torch.square(g.float()))
+                              for g in tree_leaves(tree)))
+    by_axes = {}
+    for g, spec in zip(tree_leaves(tree), tree_leaves(specs)):
+        axes = tuple(a for a in ctx.mesh.axis_names
+                     if a in sharding.sharded_axes(spec))
+        by_axes[axes] = by_axes.get(axes, 0.0) + torch.sum(
+            torch.square(g.float()))
+    total = sum(sharding.all_reduce(v, ctx, axes) if axes else v
+                for axes, v in sorted(by_axes.items()))
+    return torch.sqrt(total)
 
 
 def cosine_schedule(peak_lr: float, warmup: int, total: int,

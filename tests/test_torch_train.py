@@ -600,12 +600,21 @@ def test_launcher_trains_reduced_on_cpu(tmp_path, capsys):
     assert os.path.isdir(tmp_path / "step_00000002")
 
 
-def test_launcher_needs_a_card_or_cpu_and_refuses_a_mesh(tmp_path):
+def test_launcher_needs_a_card_or_cpu_and_validates_the_mesh(tmp_path):
+    """Without a card the launcher raises unless given ``--device cpu``;
+    a malformed ``--mesh``, or one whose data axis does not divide
+    ``--global-batch``, raises before any rank starts."""
     from repro_torch.launch import train
     argv = ["--arch", "smollm-360m", "--reduced", "--steps", "1",
             "--ckpt-dir", str(tmp_path)]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             train.main(argv)
-    with pytest.raises(ValueError, match="multi-card slice"):
-        train.main(argv + ["--device", "cpu", "--mesh", "2,1"])
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            train.main(argv + ["--mesh", "2,1"])
+    for bad in ("2", "2,x", "0,2", "2,2,2", "2,-1"):
+        with pytest.raises(ValueError, match="two positive integers"):
+            train.main(argv + ["--device", "cpu", "--mesh", bad])
+    with pytest.raises(ValueError, match="does not divide --global-batch"):
+        train.main(argv + ["--device", "cpu", "--global-batch", "6",
+                           "--mesh", "4,1"])
