@@ -25,7 +25,8 @@ on failure:
    ptxas's registers, stack frame and spills of every flit kernel logged,
    a spill fatal, and a stack frame of a periodic detector too; the run
    kernels' two reciprocal divisions against the IEEE
-   quotient over all 2^46 pairs of f32 significands each, about 2 min),
+   quotient over all 2^46 pairs of f32 significands each, about 2 min,
+   run while the mesh phases' ranks share the card),
    ``pack_flits`` at 64, 2^16 and 2^20 lines with the unpack round trip
    (timed one call, back to back and on the card); the trace scans
    ``symmetric_trace`` and ``asymmetric_trace`` (port kernels with no TPU
@@ -160,9 +161,36 @@ on failure:
       (4, 1), 2 x 256 tokens a rank, against one card's step from the same
       draw (the loss within 8 bf16 epsilons, each gathered gradient leaf
       within 16 of its largest magnitude, the parameters after the step
-      within 5e-2; each rank's blocks gathered back equal to the whole
-      leaves bitwise, its launches exact), and one more step timed: its
+      within 5e-2; each rank's blocks equal to the spec's slices of the
+      whole leaves bitwise, its launches exact), that step timed: its
       wall, peak GiB and collective bytes a rank;
+   k. every family under a mesh (the three LM kernels on each rank's
+      block): the kernels at the rank-local shapes held against their
+      plain versions and timed beside their bounds; four ranks as in j;
+      (k1) one sharded training step at full width, 2 x 256 tokens a rank,
+      against one card's at j's bounds: recurrentgemma-2b (3 layers) on
+      (1, 4), its ranks cutting the 256-channel gate heads and taking the
+      query-row attention branch; mamba2-2.7b (2 layers) on (2, 2), the
+      fused ``in_proj`` cut inside ``x`` and the SSD scan on 40 heads;
+      internvl2-1b (2 layers) on (2, 2), 256 patch rows and the KV-head
+      branch with ``qkv_bias``; seamless-m4t-large-v2 (2 + 2 layers) on
+      (2, 2) with 1000 frames; (k2) a prefill (2 x 256 text tokens a data
+      rank) and 8 teacher-forced decodes of smollm-360m, olmoe-1b-7b
+      (capacity factor 8), recurrentgemma-2b, mamba2-2.7b, internvl2-1b
+      and seamless-m4t-large-v2 (2-3 layers) under (2, 2) and (1, 4), the
+      parameters in their 'model' blocks replicated over 'data' (the
+      serving placement) and the caches as ``Model.cache_specs`` places
+      them, against one card's run from the same draw: the logits and the
+      caches gathered back within 8 bf16 epsilons of the largest value,
+      every cache leaf replicated over 'model' bitwise equal on every rank
+      after every step, the launches a prefill exact and none a decode;
+      (k3) ``ServingEngine(ctx=)`` under (1, 4): recurrentgemma-2b at full
+      width and depth, max_len 2048, the reference launcher's 8 requests
+      of 4-11 tokens, 4 slots, 16 new tokens: tok/s, peak GiB a rank, the
+      collective bytes and calls a tick, the launches a rank a prefill
+      (exact), the tokens every rank picked (equal), and the tokens that
+      differ from one card's engine on the same weights with the first
+      difference's top-2 logit gap (a measurement);
 
    The RG-LRU scan is held bitwise against its plain version in phase 3
    (it keeps the plain version's order) at nine cases (the serving
@@ -199,7 +227,8 @@ on failure:
 
 ``--training`` runs only phases 1-2 and the training phase (i), and prints
 one ``{"training": {...}}`` line last; ``--mesh`` only phases 1-2 and the
-multi-device phase (j), and one ``{"mesh": {...}}`` line last.  ``--periodic-ab`` runs only
+multi-device phases (j and k), and one ``{"mesh": {...}}`` line last.
+``--periodic-ab`` runs only
 phases 1-2 and the periodic detectors of
 phase 3, for other ``flit_sim.cu`` files (a parent commit's, unpacked with
 ``git archive``) and this tree's in turns in one process, and prints one
@@ -210,6 +239,7 @@ perturbation phases of 4 (f'), and prints one ``{"streaming": {...}}``
 line last.
 """
 import argparse
+import concurrent.futures
 import contextlib
 import ctypes
 import importlib.util
@@ -2933,6 +2963,18 @@ def step_launches(cfg, forward_only=False) -> dict:
     return out
 
 
+def family_launches(cfg, forward_only=False) -> dict:
+    """:func:`step_launches`, also for an encoder-decoder model: flash
+    attention for each encoder layer and twice (self and cross) for each
+    decoder layer."""
+    if not cfg.is_encdec:
+        return step_launches(cfg, forward_only)
+    out = {k: 0 for k in LM_KERNELS}
+    out["flash_attention_fwd"] = (cfg.encoder_layers + 2 * cfg.num_layers) \
+        * (1 if forward_only else 1 + cfg.remat)
+    return out
+
+
 def leaves_by_path(tree, prefix=""):
     if isinstance(tree, dict):
         return [x for k in sorted(tree)
@@ -3350,12 +3392,13 @@ def phase_training() -> dict:
 
 
 #: phase j: the sharded training steps, (arch, layers, mesh, local rows,
-#: config replacements): each held against one card's step from the same
-#: full draw
-MESH_CASES = (("smollm-360m", 2, (2, 2), 2, {}),
-              ("olmoe-1b-7b", 2, (2, 2), 2, {"moe_capacity_factor": 8.0}),
-              ("recurrentgemma-2b", 3, (4, 1), 1, {}))
+#: config replacements, sequence, encoder frames): each held against one
+#: card's step from the same full draw
 MESH_SEQ = 256
+MESH_CASES = (("smollm-360m", 2, (2, 2), 2, {}, MESH_SEQ, None),
+              ("olmoe-1b-7b", 2, (2, 2), 2, {"moe_capacity_factor": 8.0},
+               MESH_SEQ, None),
+              ("recurrentgemma-2b", 3, (4, 1), 1, {}, MESH_SEQ, None))
 #: timed sharded steps after the checked one
 MESH_STEPS = 1
 #: the training launcher on a (2, 2) mesh, full width and depth
@@ -3378,7 +3421,15 @@ def _mesh_step_case(case, ctx) -> dict:
     from repro_torch.train import AdamW, SyntheticLM, constant_schedule
     from repro_torch.train.train_step import value_and_grad
     t_case = time.perf_counter()
-    arch, layers, shape, rows, rep = case
+    parts, t_part = {}, [t_case]
+
+    def mark(name):
+        """Seconds since the last mark, under ``name`` (where the case's
+        wall goes)."""
+        now = time.perf_counter()
+        parts[name] = parts.get(name, 0.0) + now - t_part[0]
+        t_part[0] = now
+    arch, layers, shape, rows, rep, seq, frames = case
     cfg = dataclasses.replace(get_config(arch), num_layers=layers, **rep)
     model = build_model(cfg)
     dev = ctx.mesh.device
@@ -3386,17 +3437,33 @@ def _mesh_step_case(case, ctx) -> dict:
     full = model.init(torch.Generator(device=dev).manual_seed(0))
     specs = model.param_specs(ctx)
     local = model.shard_params(full, ctx)
-    placed = all(bool(torch.equal(sharding.unshard(a, sp, ctx), b))
+    mark("draw_s")
+    # each rank's blocks against the spec's slices of the whole draw (the
+    # gathers back are held by the gradient comparison below, and bitwise
+    # by phase j's elastic restore)
+    placed = all(bool(torch.equal(a, sharding.shard(b, sp, ctx)))
                  for (_, a), (_, sp), (_, b) in zip(
                      leaves_by_path(local), leaves_by_path(specs),
                      leaves_by_path(full)))
-    src = SyntheticLM(cfg, ShapeSpec("t", MESH_SEQ, rows * ctx.dp_size(),
+    mark("placement_check_s")
+    src = SyntheticLM(cfg, ShapeSpec("t", seq, rows * ctx.dp_size(),
                                      "train"))
     opt = AdamW(learning_rate=constant_schedule(1e-2), weight_decay=0.0)
-    batch0 = src.batch_for_step(0)
+
+    def batch_for(step):
+        """The step's batch; an encoder's ``frames`` drawn at their own
+        length (SyntheticLM draws as many frames as tokens)."""
+        b = src.batch_for_step(step)
+        if frames is not None:
+            rng = np.random.default_rng(step)
+            b["frames"] = (rng.standard_normal(
+                (b["tokens"].shape[0], frames, cfg.d_model)) * 0.02).astype(
+                    np.float32)
+        return b
+    batch0 = batch_for(0)
     rec = dict(arch=arch, layers=layers, mesh=list(shape),
-               tokens_per_rank=rows * MESH_SEQ, want_launches=step_launches(
-                   cfg))
+               tokens_per_rank=rows * seq, frames=frames,
+               want_launches=family_launches(cfg))
     if rank0:
         reset_counts()
         torch.cuda.synchronize(dev)
@@ -3414,12 +3481,13 @@ def _mesh_step_case(case, ctx) -> dict:
     del full
     torch.cuda.empty_cache()
     torch.distributed.barrier()
+    mark("one_card_s")
 
     state_opt = opt.init(local)
     walls, launches, traffic = [], [], []
     torch.cuda.reset_peak_memory_stats(dev)
     for i in range(1 + MESH_STEPS):
-        batch = src.place(src.batch_for_step(i) if i else batch0, dev, ctx)
+        batch = src.place(batch_for(i) if i else batch0, dev, ctx)
         torch.distributed.barrier()
         torch.cuda.synchronize(dev)
         reset_counts()
@@ -3434,23 +3502,30 @@ def _mesh_step_case(case, ctx) -> dict:
         traffic.append(dict(sharding.traffic))
         local, state_opt = new, new_opt
         del new, new_opt
+        mark("steps_s")
         if i == 0:
             rec.update(loss=float(loss), grad_norm=float(metrics["grad_norm"]))
             shares, pdiff, finite = {}, 0.0, True
+            # gathered leaf by leaf (under gloo to the host on the ranks
+            # that do not compare) and compared on rank 0's card, one leaf
+            # at a time: four ranks may share the card's memory
+            dest = "cpu" if not rank0 and ctx.mesh.backend == "gloo" \
+                else None
             for (name, g), (_, p), (_, sp) in zip(
                     leaves_by_path(grads), leaves_by_path(local),
                     leaves_by_path(specs)):
-                # gathered leaf by leaf and compared on the host: four
-                # ranks may share the card's memory
-                g = sharding.unshard(g, sp, ctx).cpu()
-                p = sharding.unshard(p, sp, ctx).cpu()
+                g = sharding.unshard(g, sp, ctx, dest)
+                p = sharding.unshard(p, sp, ctx, dest)
                 if rank0:
-                    w = want_g[name].float()
+                    w = want_g[name].to(dev).float()
                     tol = GRAD_EPS * BF16_EPS * max(float(w.abs().max()),
                                                     1e-30)
                     shares[name] = float((g.float() - w).abs().max()) / tol
                     finite = finite and bool(torch.isfinite(g).all())
-                    pdiff = max(pdiff, float((p - want_p[name]).abs().max()))
+                    pdiff = max(pdiff, float(
+                        (p - want_p[name].to(dev)).abs().max()))
+                    del w
+                del g, p
             if rank0:
                 worst = max(shares, key=shares.get)
                 rec.update(worst_leaf=worst, worst_share=shares[worst],
@@ -3458,12 +3533,14 @@ def _mesh_step_case(case, ctx) -> dict:
                            loss_share=abs(rec["loss"] - rec["one_card_loss"])
                            / (TOL_EPS * BF16_EPS
                               * abs(rec["one_card_loss"])))
+            mark("compare_s")
         del grads
     rec.update(placed_bitwise=placed, step_s=walls, launches=launches,
                traffic=traffic,
                peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
     torch.distributed.barrier()
-    rec["case_s"] = time.perf_counter() - t_case
+    mark("steps_s")
+    rec.update(case_s=time.perf_counter() - t_case, parts=parts)
     return rec
 
 
@@ -3493,18 +3570,12 @@ def _elastic_check(ckpt_dir, ctx) -> dict:
 
 def _mesh_rank(rank, world, ckpt_dir, out_dir) -> None:
     """Phase j on one rank: the elastic restore onto (4, 1), then every
-    case of :data:`MESH_CASES`; each rank writes its records."""
-    from repro_torch.launch import mesh as mesh_mod
+    case of :data:`MESH_CASES`, then phase k's rank work in the same
+    world; each rank writes its records."""
     from repro_torch.models import sharding
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    meshes = {}
-
-    def ctx_of(shape):
-        if shape not in meshes:
-            meshes[shape] = sharding.from_mesh(mesh_mod.init_mesh(
-                shape, ("data", "model")))
-        return meshes[shape]
+    ctx_of = _mesh_ctxs()
     out = {"elastic": _elastic_check(ckpt_dir, ctx_of(ELASTIC_MESH)),
            "steps": []}
     if rank == 0:
@@ -3518,18 +3589,23 @@ def _mesh_rank(rank, world, ckpt_dir, out_dir) -> None:
         torch.cuda.empty_cache()
         if rank == 0:
             log(f"mesh: rank 0: {case[0]} on {case[2]} done in "
-                f"{out['steps'][-1]['case_s']:.1f} s")
+                f"{out['steps'][-1]['case_s']:.1f} s "
+                + json.dumps({k: round(v, 1) for k, v in
+                              out["steps"][-1]["parts"].items()}))
+    out["families"] = _families_work(rank, ctx_of)
     with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
         json.dump(out, f)
 
 
-def phase_mesh() -> dict:
+def phase_mesh():
     """Phase j, the multi-device path: the training launcher at full width
     and depth on a (2, 2) mesh (a failure, a restart, the replay bitwise),
     its last checkpoint restored onto (4, 1) and onto one card bitwise,
     then one sharded step of each of :data:`MESH_CASES` against one card's
     and timed steps; four ranks, NCCL with a card each, gloo with the
-    tensors staged through host memory where they share cards."""
+    tensors staged through host memory where they share cards.  The same
+    ranks then run phase k's work (one world, one warm-up); returns the
+    record and each rank's phase k records for :func:`phase_families`."""
     import shutil
     import tempfile
     from repro_torch.checkpoint import ckpt, elastic
@@ -3593,8 +3669,7 @@ def phase_mesh() -> dict:
         # four ranks share one card's memory where there is one card
         os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                               "expandable_segments:True")
-        mesh_mod.spawn(_mesh_rank, world, (ckpt_dir, out_dir),
-                       device="cuda")
+        mesh_mod.spawn(_mesh_rank, world, (ckpt_dir, out_dir), device="cuda")
         ranks = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())
                  for r in range(world)]
         # the same checkpoint onto one card
@@ -3669,8 +3744,615 @@ def phase_mesh() -> dict:
                elastic=dict(one_card=one_ok, mesh=list(ELASTIC_MESH),
                             step=el[0]["step"]),
                steps=steps, wall_s=time.perf_counter() - t0)
-    log(f"mesh: phase wall {rec['wall_s']:.1f} s")
+    log(f"mesh: phase wall {rec['wall_s']:.1f} s (with phase k's rank work)")
+    return rec, [r["families"] for r in ranks]
+
+
+# -- phase k: every family under a mesh -----------------------------------------
+
+#: (k1) sharded training steps of the hybrid, ssm, vlm and enc-dec
+#: families (see :data:`MESH_CASES`): the cut gate heads and the
+#: query-row branch; the cut in_proj, the norm over d_inner and the SSD
+#: scan on 40 heads; 256 patch rows and the KV-head branch with qkv_bias;
+#: an encoder of 1000 frames
+FAMILY_STEPS = (
+    ("recurrentgemma-2b", 3, (1, 4), 2, {}, 256, None),
+    ("mamba2-2.7b", 2, (2, 2), 2, {}, 256, None),
+    ("internvl2-1b", 2, (2, 2), 2, {}, 512, None),
+    ("seamless-m4t-large-v2", 2, (2, 2), 2, {"encoder_layers": 2}, 256,
+     ENC_FRAMES[1]))
+#: (k2) a prefill of 2 x 256 text tokens a data rank (a vision model's 256
+#: patch rows besides, an encoder's 1000 frames) and teacher-forced decodes
+#: under each mesh, against one card's run from the same draw
+FAMILY_SERVE = (("smollm-360m", 2, {}),
+                (OLMOE, 2, {"moe_capacity_factor": 8.0}),
+                ("recurrentgemma-2b", 3, {}),
+                ("mamba2-2.7b", 2, {}),
+                ("internvl2-1b", 2, {}),
+                ("seamless-m4t-large-v2", 2, {"encoder_layers": 2}))
+FAMILY_MESHES = ((2, 2), (1, 4))
+FAMILY_ROWS, FAMILY_TEXT, FAMILY_DECODES, FAMILY_MAX_LEN = 2, 256, 8, 1024
+#: (k3) the serving engine under (1, 4) at full width and depth, with the
+#: reference launcher's traffic
+FAMILY_ENGINE = dict(arch="recurrentgemma-2b", mesh=(1, 4), slots=4,
+                     max_len=2048, requests=8, new_tokens=16, seed=0)
+#: rank-local shapes of the LM kernels in phase k (flash attention:
+#: B, K, G, Sq, Skv, hd, causal, window, q_offset, dtype; the RG-LRU scan:
+#: B, S, channels; the SSD scan: B, S, H, P, N, chunk)
+FAMILY_FA = {
+    "recurrentgemma-2b (1, 4) query rows": (2, 1, 10, 64, 256, 256, True,
+                                            2048, 192, "bf16"),
+    "recurrentgemma-2b (2, 2) 5 heads": (2, 5, 1, 256, 256, 256, True,
+                                         2048, 0, "bf16"),
+    "internvl2-1b (2, 2) KV head": (2, 1, 7, 512, 512, 64, True, 0, 0,
+                                    "bf16"),
+    "seamless encoder (2, 2) 8 heads": (2, 8, 1, 1000, 1000, 64, False, 0,
+                                        0, "bf16"),
+    "seamless cross (2, 2) 8 heads": (2, 8, 1, 256, 1000, 64, False, 0, 0,
+                                      "bf16"),
+}
+FAMILY_LRU = {"recurrentgemma-2b (1, 4)": (2, 256, 640),
+              "recurrentgemma-2b (2, 2)": (2, 256, 1280)}
+FAMILY_SSD = {"mamba2-2.7b (2, 2)": (2, 256, 40, 64, 128, 256),
+              "mamba2-2.7b (1, 4)": (2, 256, 20, 64, 128, 256)}
+
+
+def family_kernels() -> dict:
+    """Each LM kernel at phase k's rank-local shapes, on the card: held
+    against its plain version (flash attention to its tolerance, the
+    RG-LRU scan bitwise, the SSD scan to 1e-4 of its largest value) and
+    timed beside it, its bound and, for attention, the library's call."""
+    gen = torch.Generator(device=DEV).manual_seed(25)
+    out = {"flash_attention_fwd": {}, "rglru_scan": {}, "ssd_scan": {}}
+    for label, case in FAMILY_FA.items():
+        causal, window, off = case[6:9]
+        q, k, v = fa_inputs(case, gen)
+        got = fa_ops.flash_attention(q, k, v, causal, window, off).float()
+        want = fa_ref.attention_ref(q, k, v, causal=causal, window=window,
+                                    q_offset=off).float()
+        atol, rtol = FA_TOL["bf16"]
+        if not torch.isfinite(got).all() or \
+                not torch.allclose(got, want, atol=atol, rtol=rtol):
+            raise AssertionError(f"flash_attention_fwd {label}: differs "
+                                 f"from its plain version")
+        rec = dict(case=list(case),
+                   max_abs_err=float((got - want).abs().max()),
+                   ms=time_ms(lambda: fa_ops.flash_attention(
+                       q, k, v, causal, window, off), 20),
+                   plain_ms=time_ms(lambda: fa_ref.attention_ref(
+                       q, k, v, causal=causal, window=window, q_offset=off),
+                       5))
+        rec["library_ms"] = min(sdpa_ms(case, q, k, v, 20).values())
+        rec["bound_ms"], rec["bound_by"] = fa_bound(case)
+        out["flash_attention_fwd"][label] = rec
+    for label, shape in FAMILY_LRU.items():
+        log_a = -torch.rand(shape, generator=gen, device=DEV) * 2.0
+        b = torch.randn(shape, generator=gen, device=DEV)
+        err = hold(f"rglru_scan {label} {shape}", lru_ops.lru(log_a, b),
+                   lru_ref.lru_ref(log_a, b))
+        rec = dict(shape=list(shape), max_abs_err=err,
+                   ms=time_ms(lambda: lru_ops.lru(log_a, b), 20),
+                   plain_ms=time_ms(lambda: lru_ref.lru_ref(log_a, b), 3),
+                   library_ms=None)
+        rec["bound_ms"], rec["bound_by"] = lru_bound(shape)
+        out["rglru_scan"][label] = rec
+    for label, case in FAMILY_SSD.items():
+        x, dt, b, c, a_log, _ = ssd_inputs(case, gen)
+        chunk = case[5]
+        y, fs = ssd_ops.ssd(x, dt, b, c, a_log, chunk)
+        wy, wfs = ssd_chunked(x, dt, b[:, :, None], c[:, :, None], a_log,
+                              chunk)
+        err = max(float((y - wy).abs().max()), float((fs - wfs).abs().max()))
+        if err > SSD_REL * max(float(wy.abs().max()),
+                               float(wfs.abs().max())):
+            raise AssertionError(f"ssd_scan {label}: differs from "
+                                 f"ssd_chunked by {err}")
+        rec = dict(case=list(case), max_abs_err=err,
+                   ms=time_ms(lambda: ssd_ops.ssd(x, dt, b, c, a_log,
+                                                  chunk), 20),
+                   plain_ms=time_ms(lambda: ssd_chunked(
+                       x, dt, b[:, :, None], c[:, :, None], a_log, chunk),
+                       3),
+                   library_ms=None)
+        rec["bound_ms"], rec["bound_by"], _ = ssd_bound(case)
+        out["ssd_scan"][label] = rec
+    for name, recs in out.items():
+        for label, rec in recs.items():
+            log(f"mesh families: kernel {name} @ rank-local {label}: max "
+                f"|diff| vs plain {rec['max_abs_err']:.3g}; kernel "
+                f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms"
+                + (f", library {rec['library_ms']:.4f} ms"
+                   if rec["library_ms"] is not None else "")
+                + f", bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}) "
+                f"[{card_line()}]")
+    return out
+
+
+def _leaves_with_specs(tree, specs):
+    """``(tensor, spec)`` of every cache leaf (dicts and tuples)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _leaves_with_specs(tree[k], specs[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for t, s in zip(tree, specs)
+                for x in _leaves_with_specs(t, s)]
+    return [(tree, specs)]
+
+
+def _replicated_equal(caches, specs, ctx) -> bool:
+    """Every cache leaf the spec keeps whole over 'model' holds the same
+    bits on every 'model' rank."""
+    from repro_torch.models import sharding
+    ok = True
+    for t, spec in _leaves_with_specs(caches, specs):
+        if ctx.tp_axis in sharding.sharded_axes(spec):
+            continue
+        every = sharding.all_gather(t[None], ctx, ctx.tp_axis, 0)
+        ok = ok and all(bool(torch.equal(every[0], every[i]))
+                        for i in range(1, every.shape[0]))
+    return ok
+
+
+def _share(got, want) -> float:
+    """|got - want| over the serving bound (:data:`TOL_EPS` bf16 epsilons
+    of the largest |want|): at most 1 holds."""
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        return float("inf")
+    tol = TOL_EPS * BF16_EPS * max(float(want.abs().max()), 1e-6)
+    return float((got - want).abs().max()) / tol
+
+
+def _cpu_caches(caches):
+    from repro_torch.models import sharding
+    return sharding.map_tree(lambda t: t.detach().to("cpu", copy=True),
+                             caches)
+
+
+def _caches_share(got, want) -> float:
+    """The largest :func:`_share` over the cache leaves."""
+    gl = [t for t, _ in _leaves_with_specs(got, got)]     # (no specs: the
+    wl = [t for t, _ in _leaves_with_specs(want, want)]   # tree's own walk)
+    if len(gl) != len(wl) or any(a.shape != b.shape for a, b in zip(gl, wl)):
+        raise AssertionError("gathered caches differ in structure or shape "
+                             "from one card's")
+    return max(_share(a, b) for a, b in zip(gl, wl))
+
+
+def serving_ctx(ctx):
+    """The parameters' placement for serving: 'model' blocks, replicated
+    over 'data' (no FSDP gathers a forward; the caches as the spec
+    places them)."""
+    import dataclasses
+    return dataclasses.replace(ctx, fsdp_axis=None)
+
+
+def _family_serve_case(case, ctx) -> dict:
+    """(k2) one case of :data:`FAMILY_SERVE` on this rank: rank 0 runs one
+    card's prefill and teacher-forced decodes from the full draw; then
+    every rank the sharded prefill and decodes with the same tokens.
+    Logits, the caches gathered back and the replicated cache leaves are
+    held on rank 0 (on the host)."""
+    import dataclasses
+    from repro_torch.models import sharding
+    t_case = time.perf_counter()
+    arch, layers, rep = case
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers, **rep)
+    model = build_model(cfg)
+    dev = ctx.mesh.device
+    rank0 = ctx.mesh.rank == 0
+    rows = FAMILY_ROWS * ctx.dp_size()
+    rng = np.random.default_rng(5)
+    tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size, (
+        rows, FAMILY_TEXT)), device=dev)
+    extra, off = {}, 0
+    if cfg.frontend == "vision":
+        off = cfg.frontend_tokens
+        extra["patch_embeds"] = torch.as_tensor((rng.standard_normal((
+            rows, off, cfg.d_model)) * 0.02).astype(np.float32), device=dev)
+    if cfg.is_encdec:
+        extra["frames"] = torch.as_tensor((rng.standard_normal((
+            rows, ENC_FRAMES[1], cfg.d_model)) * 0.02).astype(np.float32),
+            device=dev)
+    pos = lambda step: torch.full((rows, 1), off + FAMILY_TEXT + step,
+                                  device=dev)
+    full = model.init(torch.Generator(device=dev).manual_seed(0))
+    rec = dict(arch=arch, layers=layers, mesh=list(ctx.mesh.devices_shape),
+               rows=rows, text=FAMILY_TEXT, positions=off + FAMILY_TEXT)
+    feed = [None]
+    if rank0:
+        with torch.no_grad():
+            logits, caches = model.prefill(full, tokens, FAMILY_MAX_LEN,
+                                           **extra)
+            want_logits = [logits.float().cpu()]
+            want_caches = [_cpu_caches(caches)]
+            feed[0] = []
+            for step in range(FAMILY_DECODES):
+                tok = torch.argmax(logits, dim=-1)[:, None]
+                feed[0].append(tok.cpu())
+                logits, caches = model.decode_step(full, tok, caches,
+                                                   pos(step))
+                want_logits.append(logits.float().cpu())
+            want_caches.append(_cpu_caches(caches))
+        del logits, caches
+    torch.distributed.broadcast_object_list(feed, src=0)
+    local = model.shard_params(full, ctx)
+    del full
+    torch.cuda.empty_cache()
+    specs = model.cache_specs(ctx, rows, FAMILY_MAX_LEN)
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.distributed.barrier()
+    torch.cuda.synchronize(dev)
+    reset_counts()
+    sharding.reset_traffic()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        logits, caches = model.prefill(local, tokens, FAMILY_MAX_LEN,
+                                       ctx=ctx, **extra)
+    torch.cuda.synchronize(dev)
+    rec.update(prefill_s=time.perf_counter() - t0,
+               prefill_launches=lm_counts(),
+               want_prefill_launches=family_launches(cfg, True),
+               prefill_traffic=dict(sharding.traffic))
+    got_logits = [logits.float().cpu()]
+    same = _replicated_equal(caches, specs, ctx)
+    got_caches = [_cpu_caches(sharding.unshard_tree(caches, specs, ctx,
+                                                    "cpu"))]
+    ticks, tick_traffic, decode_launches = [], [], []
+    for step, tok in enumerate(feed[0]):
+        torch.cuda.synchronize(dev)
+        reset_counts()
+        sharding.reset_traffic()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, caches = model.decode_step(local, tok.to(dev), caches,
+                                               pos(step), ctx=ctx)
+        torch.cuda.synchronize(dev)
+        ticks.append(time.perf_counter() - t0)
+        tick_traffic.append(dict(sharding.traffic))
+        decode_launches.append(lm_counts())
+        got_logits.append(logits.float().cpu())
+        same = same and _replicated_equal(caches, specs, ctx)
+    got_caches.append(_cpu_caches(sharding.unshard_tree(caches, specs, ctx,
+                                                        "cpu")))
+    rec.update(decode_s=ticks, tick_traffic=tick_traffic,
+               decode_launches=decode_launches, replicated_bitwise=same,
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    if rank0:
+        rec["logits_share"] = max(_share(g, w) for g, w in
+                                  zip(got_logits, want_logits))
+        rec["caches_share"] = max(_caches_share(g, w) for g, w in
+                                  zip(got_caches, want_caches))
+    del local, caches, logits
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    rec["case_s"] = time.perf_counter() - t_case
     return rec
+
+
+class _Tap:
+    """Wraps a model for a serving engine and records each request's
+    logits on the host: its prefill's, then one row a tick while it holds
+    a slot."""
+
+    def __init__(self, model):
+        self.model, self.prefills, self.rows, self.engine = model, [], {}, \
+            None
+
+    def __getattr__(self, name):
+        return getattr(self.model, name)
+
+    def prefill(self, *args, **kw):
+        logits, caches = self.model.prefill(*args, **kw)
+        self.prefills.append(logits[0].float().cpu())
+        return logits, caches
+
+    def decode_step(self, *args, **kw):
+        logits, caches = self.model.decode_step(*args, **kw)
+        rows = logits.float().cpu()
+        for i, req in enumerate(self.engine.active):
+            if req is not None:
+                self.rows.setdefault(req.rid, []).append(rows[i])
+        return logits, caches
+
+    def logits(self, rid):
+        return [self.prefills[rid]] + self.rows.get(rid, [])
+
+
+def _engine_requests(cfg):
+    rng = np.random.default_rng(FAMILY_ENGINE["seed"])
+    out = []
+    for i in range(FAMILY_ENGINE["requests"]):
+        plen = int(rng.integers(4, 12))
+        out.append(Request(rid=i, prompt=rng.integers(
+            0, cfg.vocab_size, plen).astype(np.int32),
+            max_new_tokens=FAMILY_ENGINE["new_tokens"]))
+    return out
+
+
+def _family_engine(ctx) -> dict:
+    """(k3) the serving engine under ``ctx`` at full width and depth.  The
+    ranks draw the full weights one at a time (four ranks share one
+    card's memory); rank 0 first serves the same requests on one card."""
+    from repro_torch.models import sharding
+    t_case = time.perf_counter()
+    cfg = get_config(FAMILY_ENGINE["arch"])
+    model = build_model(cfg)
+    dev = ctx.mesh.device
+    rank0 = ctx.mesh.rank == 0
+    kw = dict(batch_slots=FAMILY_ENGINE["slots"],
+              max_len=FAMILY_ENGINE["max_len"])
+    rec = dict(arch=cfg.name, layers=cfg.num_layers,
+               mesh=list(ctx.mesh.devices_shape), **kw)
+    local, one = None, None
+    for r in range(ctx.mesh.size):
+        if ctx.mesh.rank == r:
+            full = model.init(torch.Generator(device=dev).manual_seed(0))
+            if rank0:
+                tap = _Tap(model)
+                eng = ServingEngine(tap, full, device=dev, **kw)
+                tap.engine = eng
+                for req in _engine_requests(cfg):
+                    eng.submit(req)
+                torch.cuda.synchronize(dev)
+                t0 = time.perf_counter()
+                done = eng.run_until_drained()
+                torch.cuda.synchronize(dev)
+                one = dict(wall_s=time.perf_counter() - t0,
+                           tokens={q.rid: q.generated for q in done}, tap=tap)
+                del eng
+            local = model.shard_params(full, ctx)
+            del full
+            torch.cuda.empty_cache()
+        torch.distributed.barrier()
+    rec["draws_s"] = time.perf_counter() - t_case
+    torch.cuda.reset_peak_memory_stats(dev)
+    eng = ServingEngine(model, local, device=dev, ctx=ctx, **kw)
+    for req in _engine_requests(cfg):
+        eng.submit(req)
+    ticks, traffic = [], []
+    torch.distributed.barrier()
+    torch.cuda.synchronize(dev)
+    reset_counts()
+    t0 = time.perf_counter()
+    while eng.queue or any(q is not None for q in eng.active):
+        sharding.reset_traffic()
+        t1 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize(dev)
+        ticks.append(time.perf_counter() - t1)
+        traffic.append(dict(sharding.traffic))
+    wall = time.perf_counter() - t0
+    launches = lm_counts()
+    tokens = {q.rid: q.generated for q in eng.finished}
+    every = [None] * ctx.mesh.size
+    torch.distributed.all_gather_object(every, tokens)
+    n_tok = sum(len(v) for v in tokens.values())
+    per_tick = [t["all_reduce"] + t["all_gather"] for t in traffic]
+    rec.update(wall_s=wall, tokens=n_tok, tok_per_s=n_tok / wall,
+               ticks=len(ticks), tick_s=ticks,
+               collective_bytes_per_tick=sorted(per_tick)[len(per_tick) // 2],
+               collective_calls_per_tick=sorted(
+                   t["calls"] for t in traffic)[len(traffic) // 2],
+               collective_bytes_max_tick=max(per_tick),
+               launches=launches,
+               launches_per_prefill={k: v / FAMILY_ENGINE["requests"]
+                                     for k, v in launches.items()},
+               want_per_prefill=family_launches(cfg, True),
+               ranks_agree=all(e == every[0] for e in every),
+               peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
+    if rank0:
+        diffs, first = 0, []
+        for rid, want in one["tokens"].items():
+            got = tokens[rid]
+            rows = one["tap"].logits(rid)
+            d = [j for j, (a, b) in enumerate(zip(got, want)) if a != b]
+            diffs += len(d)
+            if d:
+                top = torch.topk(rows[d[0]], 2).values
+                first.append(dict(rid=rid, step=d[0],
+                                  top2_gap=float(top[0] - top[1])))
+        rec.update(one_card_wall_s=one["wall_s"],
+                   one_card_tok_per_s=n_tok / one["wall_s"],
+                   tokens_differing=diffs, first_differences=first)
+    del eng, local
+    torch.cuda.empty_cache()
+    torch.distributed.barrier()
+    rec["case_s"] = time.perf_counter() - t_case
+    return rec
+
+
+def _families_work(rank, ctx_of) -> dict:
+    """Phase k on one rank: (k1) the sharded steps, (k2) prefill and
+    decodes under each mesh, (k3) the engine; ``ctx_of(shape)`` gives the
+    ctx of a live mesh."""
+    from repro_torch.models import sharding
+    out = {"steps": [], "serve": []}
+    for case in FAMILY_STEPS:
+        out["steps"].append(_mesh_step_case(case, ctx_of(case[2])))
+        torch.cuda.empty_cache()
+        if rank == 0:
+            log(f"mesh families: rank 0: step {case[0]} on {case[2]} done "
+                f"in {out['steps'][-1]['case_s']:.1f} s "
+                + json.dumps({k: round(v, 1) for k, v in
+                              out["steps"][-1]["parts"].items()}))
+    for shape in FAMILY_MESHES:
+        for case in FAMILY_SERVE:
+            out["serve"].append(_family_serve_case(
+                case, serving_ctx(ctx_of(shape))))
+            if rank == 0:
+                log(f"mesh families: rank 0: serve {case[0]} on {shape} "
+                    f"done in {out['serve'][-1]['case_s']:.1f} s")
+    out["engine"] = _family_engine(serving_ctx(ctx_of(
+        FAMILY_ENGINE["mesh"])))
+    ctx = ctx_of(FAMILY_MESHES[0])
+    out["transport"] = sharding.transport(ctx, ctx.mesh.device)
+    out["backend"] = ctx.mesh.backend
+    return out
+
+
+def _mesh_ctxs():
+    """``ctx_of(shape)``: the ctx of a live (data, model) mesh, each built
+    once, in the same order on every rank."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models import sharding
+    meshes = {}
+
+    def ctx_of(shape):
+        if shape not in meshes:
+            meshes[shape] = sharding.from_mesh(mesh_mod.init_mesh(
+                shape, ("data", "model")))
+        return meshes[shape]
+    return ctx_of
+
+
+def phase_families(ranks) -> dict:
+    """Phase k: every family under a (data, model) mesh, four ranks (NCCL
+    with a card a rank, else gloo staged through host memory): the LM
+    kernels at their rank-local shapes on the card; (k1) a sharded
+    training step of the hybrid, ssm, vlm and enc-dec families against one
+    card's; (k2) prefill and teacher-forced decodes of six families under
+    (2, 2) and (1, 4) against one card's run (logits and gathered caches
+    within the serving bound, replicated cache leaves bitwise across the
+    'model' ranks); (k3) the serving engine under (1, 4) at full width and
+    depth beside one card's engine.  The kernels' launches a rank are
+    counted around each sharded run and held exactly.  ``ranks``: each
+    rank's records of that work, run in phase j's world
+    (:func:`phase_mesh`)."""
+    t0 = time.perf_counter()
+    kernels = family_kernels()
+    torch.cuda.empty_cache()
+    steps = []
+    for i, case in enumerate(FAMILY_STEPS):
+        recs = [r["steps"][i] for r in ranks]
+        r0 = recs[0]
+        bad = [r for r in recs if not r["placed_bitwise"]
+               or any(n != r["want_launches"] for n in r["launches"])]
+        if bad or r0["loss_share"] > 1.0 or r0["worst_share"] > 1.0 or \
+                not r0["finite"] or r0["param_max_diff"] >= 5e-2:
+            raise AssertionError(f"mesh families step {case[:3]}: "
+                                 f"{json.dumps(r0)[:3000]}")
+        byt = [sum(r["traffic"][-1][k] for k in ("all_reduce", "all_gather"))
+               for r in recs]
+        rec = dict(arch=case[0], layers=case[1], mesh=list(case[2]),
+                   tokens_per_rank=r0["tokens_per_rank"],
+                   frames=r0["frames"], loss=r0["loss"],
+                   one_card_loss=r0["one_card_loss"],
+                   loss_share=r0["loss_share"], worst_leaf=r0["worst_leaf"],
+                   worst_share=r0["worst_share"],
+                   param_max_diff=r0["param_max_diff"],
+                   launches_per_rank_step=r0["launches"][0],
+                   step_s=max(r["step_s"][-1] for r in recs),
+                   first_step_s=r0["step_s"][0],
+                   one_card_step_s=r0["one_card_s"],
+                   peak_gib_per_rank=[r["peak_gib"] for r in recs],
+                   collective_bytes_per_rank_step=byt,
+                   collective_calls_per_step=r0["traffic"][-1]["calls"],
+                   case_s=r0["case_s"])
+        steps.append(rec)
+        log(f"mesh families k1: {case[0]} {case[1]} layers on {case[2]}, "
+            f"{rec['tokens_per_rank']} tokens a rank"
+            + (f", {case[6]} frames" if case[6] else "")
+            + f": loss {rec['loss']:.6f} sharded, {rec['one_card_loss']:.6f}"
+            f" one card ({rec['loss_share']:.3f} of the bound); worst "
+            f"gradient leaf {rec['worst_leaf']} at {rec['worst_share']:.3f} "
+            f"of {GRAD_EPS} bf16 epsilons; parameters within "
+            f"{rec['param_max_diff']:.2e}; launches "
+            f"{rec['launches_per_rank_step']} a rank a step; step "
+            f"{1e3 * rec['step_s']:.1f} ms after the first "
+            f"{1e3 * rec['first_step_s']:.1f} ms (one card "
+            f"{1e3 * rec['one_card_step_s']:.1f} ms, its first call); peak "
+            f"{max(rec['peak_gib_per_rank']):.2f} GiB a rank; collectives "
+            f"{max(byt) / 2**30:.3f} GiB in "
+            f"{rec['collective_calls_per_step']} calls a rank a step "
+            f"[{card_line()}]")
+    serve = []
+    for i, r0 in enumerate(ranks[0]["serve"]):
+        recs = [r["serve"][i] for r in ranks]
+        bad = [r for r in recs if not r["replicated_bitwise"]
+               or r["prefill_launches"] != r["want_prefill_launches"]
+               or any(sum(n.values()) for n in r["decode_launches"])]
+        what = f"mesh families k2 {r0['arch']} on {tuple(r0['mesh'])}"
+        if bad or r0["logits_share"] > 1.0 or r0["caches_share"] > 1.0:
+            raise AssertionError(f"{what}: {json.dumps(r0)[:3000]}")
+        tick = sorted(max(r["decode_s"][j] for r in recs)
+                      for j in range(FAMILY_DECODES))[FAMILY_DECODES // 2]
+        tb = [t["all_reduce"] + t["all_gather"] for t in r0["tick_traffic"]]
+        rec = dict(arch=r0["arch"], layers=r0["layers"], mesh=r0["mesh"],
+                   rows=r0["rows"], positions=r0["positions"],
+                   logits_share=r0["logits_share"],
+                   caches_share=r0["caches_share"],
+                   prefill_launches_per_rank=r0["prefill_launches"],
+                   prefill_s=max(r["prefill_s"] for r in recs),
+                   tick_s=tick, tick_bytes=sorted(tb)[len(tb) // 2],
+                   tick_calls=r0["tick_traffic"][-1]["calls"],
+                   prefill_bytes=r0["prefill_traffic"]["all_reduce"]
+                   + r0["prefill_traffic"]["all_gather"],
+                   prefill_calls=r0["prefill_traffic"]["calls"],
+                   peak_gib_per_rank=[r["peak_gib"] for r in recs],
+                   case_s=r0["case_s"])
+        serve.append(rec)
+        log(f"{what}: {rec['layers']} layers, {rec['rows']} rows of "
+            f"{rec['positions']} positions, {FAMILY_DECODES} decodes: logits "
+            f"at {rec['logits_share']:.3f} and gathered caches at "
+            f"{rec['caches_share']:.3f} of the bound ({TOL_EPS} bf16 "
+            f"epsilons of the largest), replicated cache leaves bitwise on "
+            f"every 'model' rank; {rec['prefill_launches_per_rank']} launches "
+            f"a rank a prefill, none a decode; prefill "
+            f"{1e3 * rec['prefill_s']:.1f} ms ({rec['prefill_bytes'] / 2**20:.2f}"
+            f" MiB in {rec['prefill_calls']} calls), tick "
+            f"{1e3 * rec['tick_s']:.1f} ms ({rec['tick_bytes'] / 2**20:.3f} "
+            f"MiB in {rec['tick_calls']} calls); peak "
+            f"{max(rec['peak_gib_per_rank']):.2f} GiB a rank [{card_line()}]")
+    engs = [r["engine"] for r in ranks]
+    e0 = engs[0]
+    if not all(e["ranks_agree"] for e in engs) or any(
+            e["launches_per_prefill"] != e["want_per_prefill"]
+            for e in engs):
+        raise AssertionError(f"mesh families k3: {json.dumps(e0)[:3000]}")
+    engine = {k: v for k, v in e0.items() if k not in ("tick_s",
+                                                       "want_per_prefill")}
+    engine["peak_gib_per_rank"] = [e["peak_gib"] for e in engs]
+    engine["median_tick_s"] = sorted(e0["tick_s"])[len(e0["tick_s"]) // 2]
+    log(f"mesh families k3: ServingEngine {e0['arch']} ({e0['layers']} "
+        f"layers) under {tuple(e0['mesh'])}, {FAMILY_ENGINE['requests']} "
+        f"requests of 4-11 tokens, {e0['batch_slots']} slots, max_len "
+        f"{e0['max_len']}: {e0['tokens']} tokens in {e0['wall_s']:.2f} s "
+        f"({e0['tok_per_s']:.1f} tok/s; one card's engine "
+        f"{e0['one_card_tok_per_s']:.1f} tok/s; the draws and one card's "
+        f"engine before it {e0['draws_s']:.1f} s), {e0['ticks']} ticks, median "
+        f"{1e3 * engine['median_tick_s']:.1f} ms; peak "
+        f"{max(engine['peak_gib_per_rank']):.2f} GiB a rank; collectives "
+        f"{e0['collective_bytes_per_tick'] / 2**20:.3f} MiB in "
+        f"{e0['collective_calls_per_tick']} calls a tick (median; max "
+        f"{e0['collective_bytes_max_tick'] / 2**20:.3f} MiB); launches a "
+        f"rank a prefill {e0['launches_per_prefill']}; tokens differing from "
+        f"one card's engine {e0['tokens_differing']} of {e0['tokens']}, "
+        f"first differences {e0['first_differences']} [{card_line()}]")
+    rec = dict(world=len(ranks), cards=torch.cuda.device_count(),
+               backend=ranks[0]["backend"], transport=ranks[0]["transport"],
+               kernels=kernels, steps=steps, serve=serve, engine=engine,
+               wall_s=time.perf_counter() - t0)
+    log(f"mesh families: phase wall {rec['wall_s']:.1f} s (the ranks' work "
+        f"ran in phase j's world, inside its wall)")
+    return rec
+
+
+def family_kernel_record(name: str, families: dict) -> dict:
+    """A kernel's entry of phase k: its times at the rank-local shapes and
+    its launches a rank in each sharded run."""
+    launches = {f"step {st['arch']} {st['mesh']}":
+                st["launches_per_rank_step"][name]
+                for st in families["steps"]}
+    launches.update({f"prefill {sv['arch']} {sv['mesh']}":
+                     sv["prefill_launches_per_rank"][name]
+                     for sv in families["serve"]})
+    launches["engine prefill"] = families["engine"][
+        "launches_per_prefill"][name]
+    return {"rank_local": families["kernels"][name],
+            "launches_per_rank": launches,
+            "backend": families["backend"],
+            "transport": families["transport"]}
 
 
 def lm_kernel_records(lm_records, serving):
@@ -3732,7 +4414,7 @@ def main() -> None:
     ap.add_argument("--training", action="store_true",
                     help="only run the training phase")
     ap.add_argument("--mesh", action="store_true",
-                    help="only run the multi-device phase")
+                    help="only run the multi-device phases (j and k)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
@@ -3768,7 +4450,8 @@ def main() -> None:
         _build.build(["flash_attention", "rglru_scan", "ssd_scan"])
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        records = phase_mesh()
+        records, fam = phase_mesh()
+        records["families"] = phase_families(fam)
         print(card)
         print(json.dumps({"mesh": records}))
         return
@@ -3785,7 +4468,6 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     records = phase_kernels()
     trace_records = phase_traces()
-    phase_division()
     lm_records = phase_lm_kernels()
     lm_records["rglru_scan"] = phase_lru_kernel()
     lm_records["ssd_scan"] = phase_ssd_kernel()
@@ -3794,7 +4476,13 @@ def main() -> None:
     serving = phase_serving()
     serving.update(phase_new_families())
     training = phase_training()
-    mesh = phase_mesh()
+    # the division check keeps the card busy while the mesh phases' ranks,
+    # sharing it, stage their collectives through host memory
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        division = pool.submit(phase_division)
+        mesh, fam = phase_mesh()
+        division.result()
+    families = phase_families(fam)
 
     big = records["2^20 cells"]
     #: the main-path run each kernel's launch count is read from
@@ -3870,8 +4558,11 @@ def main() -> None:
                 "launcher_launches_per_rank_step":
                     mesh["launcher"]["launches_per_step"][rec["name"]],
                 "backend": mesh["backend"], "transport": mesh["transport"]}
+            rec["mesh_families"] = family_kernel_record(rec["name"],
+                                                        families)
     log(f"streaming [{card}]: {json.dumps(stream)}")
     log(f"mesh [{card}]: {json.dumps(mesh)}")
+    log(f"mesh families [{card}]: {json.dumps(families)}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

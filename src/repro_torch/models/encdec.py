@@ -21,9 +21,13 @@ layer (``torch.utils.checkpoint``), as the reference's ``jax.checkpoint``.
 Caches, one per decoder layer: ``{"self": {"k", "v"}, "cross": {"k",
 "v"}}``.
 
-Under a mesh with one 'model' rank (``ShardingCtx``) a training forward
-takes the data rank's rows and gathers the FSDP leaves over 'data': those
-outside the layers at the start, each layer's inside the layer.
+Under a mesh (``ShardingCtx``) a forward takes the data rank's rows and
+gathers the FSDP leaves over 'data': those outside the layers at the
+start, each layer's inside the layer.  Over 'model' the encoder's and the
+decoder's self attention, the cross attention (queries from the decoder,
+K/V from the encoder output) and the MLPs run tensor parallel, as a
+decoder-only model's layers do; the self and cross caches hold every head
+and the rank's block of the positions or frames.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import sharding
 from repro_torch.models.layers import (
     COMPUTE_DTYPE, cast, embed, mlp, mlp_schema, rmsnorm, rmsnorm_schema,
-    unembed,
+    unembed, whole_logits,
 )
 from repro_torch.models.schema import Leaf
 
@@ -80,13 +84,14 @@ def encdec_schema(cfg: ModelConfig):
     }
 
 
-def _enc_block(lp, x, cfg: ModelConfig, positions):
+def _enc_block(lp, x, cfg: ModelConfig, positions, ctx=None):
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    q, k, v = attn.qkv_project(lp["attn"], h, cfg, positions=positions)
-    o = attn.attend_prefill(q, k, v, causal=False)
-    x = x + attn.out_project(lp["attn"], o, cfg)
+    q, k, v = attn.qkv_project(lp["attn"], h, cfg, positions=positions,
+                               ctx=ctx)
+    o = attn.attend_prefill(q, k, v, causal=False, cfg=cfg, ctx=ctx)
+    x = x + attn.out_project(lp["attn"], o, cfg, ctx)
     h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + mlp(lp["mlp"], h2, cfg)
+    return x + mlp(lp["mlp"], h2, cfg, ctx)
 
 
 def _layer(fn, remat: bool, *args, specs=None, ctx=None):
@@ -109,7 +114,8 @@ def encode(params, frames, cfg: ModelConfig, remat: bool = False,
     x = torch.matmul(cast(frames), cast(params["frontend"]["adapter"]))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
     blocks = params["encoder"]["blocks"]
-    fn = functools.partial(_enc_block, cfg=cfg, positions=positions)
+    fn = functools.partial(_enc_block, cfg=cfg, positions=positions,
+                           ctx=ctx)
     for i in range(cfg.encoder_layers):
         name = f"layer_{i:02d}"
         x = _layer(fn, remat, blocks[name], x, ctx=ctx, specs=None
@@ -117,62 +123,76 @@ def encode(params, frames, cfg: ModelConfig, remat: bool = False,
     return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
 
 
-def _cross_q(lp, hx, cfg: ModelConfig):
-    """Cross-attention queries [B, S, K, G, hd] (no RoPE, no bias)."""
-    q = attn.project(hx, lp["xattn"]["wq"])
-    k = cfg.num_kv_heads
-    return q.reshape(q.shape[0], q.shape[1], k, cfg.num_heads // k,
-                     cfg.head_dim)
-
-
 def _dec_block(lp, x, enc, cfg: ModelConfig, *, mode: str, positions,
-               cache=None):
+               cache=None, ctx=None, cache_len=None):
     """enc: encoder output [B, Se, d] (train, prefill) or None (decode,
-    which reads the cross K/V from ``cache``)."""
+    which reads the cross K/V from ``cache``).  Under 'model' ranks the
+    self and cross caches are laid out as a decoder-only model's (every
+    head, the rank's block of the positions or frames)."""
+    tp = sharding.active(ctx) and ctx.tp_size() > 1
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
-    q, k, v = attn.qkv_project(lp["attn"], h, cfg, positions=positions)
     if mode == "decode":
-        pos = positions[:, 0]
-        rows = torch.arange(x.shape[0], device=x.device)
-        kc, vc = cache["self"]["k"], cache["self"]["v"]
-        kc[rows, pos] = k[:, 0]
-        vc[rows, pos] = v[:, 0]
-        o = attn.attend_decode(q, kc, vc, cache_len=pos + 1)
-        self_cache = {"k": kc, "v": vc}
+        if tp:
+            q, k, v = attn.decode_qkv(lp["attn"], h, cfg, positions, ctx)
+        else:
+            q, k, v = attn.qkv_project(lp["attn"], h, cfg,
+                                       positions=positions)
+        self_cache, o = attn.decode_attend(q, k, v, cache["self"],
+                                           positions[:, 0], 0,
+                                           ctx if tp else None)
     else:
-        o = attn.attend_prefill(q, k, v, causal=True)
-        self_cache = {"k": k, "v": v}
-    x = x + attn.out_project(lp["attn"], o, cfg)
+        q, k, v = attn.qkv_project(lp["attn"], h, cfg, positions=positions,
+                                   ctx=ctx)
+        o = attn.attend_prefill(q, k, v, causal=True, cfg=cfg, ctx=ctx)
+        self_cache = {n: attn.cache_positions(
+            attn.whole_kv(t, cfg, x.shape[1], ctx), ctx, cache_len,
+            cache_len is not None) for n, t in (("k", k), ("v", v))} \
+            if mode == "prefill" else None
+    x = x + attn.out_project(lp["attn"], o, cfg, ctx)
 
     hx = rmsnorm(lp["lnx"], x, cfg.norm_eps)
-    qx = _cross_q(lp, hx, cfg)
+    xp = lp["xattn"]
     if mode == "decode":
         cross = cache["cross"]
-        ox = attn.attend_decode(qx, cross["k"], cross["v"],
-                                cache_len=cross["k"].shape[1])
+        kh, g = cfg.num_kv_heads, cfg.num_heads // cfg.num_kv_heads
+        if tp:
+            qx = attn.whole_project(hx, xp["wq"], None, cfg.num_heads, ctx)
+            valid = torch.ones((x.shape[0], cross["k"].shape[1]),
+                               dtype=torch.bool, device=x.device)
+        else:
+            qx = attn.project(hx, xp["wq"])
+        qx = qx.reshape(qx.shape[0], 1, kh, g, cfg.head_dim)
+        if tp:
+            ox = attn.attend_decode_cp(qx, cross["k"], cross["v"], valid,
+                                       ctx)
+        else:
+            ox = attn.attend_decode(qx, cross["k"], cross["v"],
+                                    cache_len=cross["k"].shape[1])
     else:
-        cross = {"k": attn.project(enc, lp["xattn"]["wk"]),
-                 "v": attn.project(enc, lp["xattn"]["wv"])}
-        ox = attn.attend_prefill(qx, cross["k"], cross["v"], causal=False)
-    x = x + attn.out_project(lp["xattn"], ox, cfg)
+        qx, ck, cv = attn.qkv_project(xp, hx, cfg, rope_on=False, ctx=ctx,
+                                      kv_x=enc)
+        ox = attn.attend_prefill(qx, ck, cv, causal=False, cfg=cfg, ctx=ctx)
+        cross = {n: attn.cache_positions(
+            attn.whole_kv(t, cfg, x.shape[1], ctx), ctx) for n, t in
+            (("k", ck), ("v", cv))} if mode == "prefill" else None
+    x = x + attn.out_project(xp, ox, cfg, ctx)
 
     h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + mlp(lp["mlp"], h2, cfg), {"self": self_cache,
-                                         "cross": cross}
+    return x + mlp(lp["mlp"], h2, cfg, ctx), {"self": self_cache,
+                                              "cross": cross}
 
 
 def forward_encdec(params, tokens, cfg: ModelConfig, *, mode: str,
-                   frames=None, caches=None, positions=None, ctx=None):
+                   frames=None, caches=None, positions=None, ctx=None,
+                   cache_len=None):
     """train: tokens [B, St], frames [B, Se, d] -> (logits [B, St, V], aux
     f32 zero); prefill: the same inputs -> (last logits [B, V], caches);
     decode: tokens [B, 1], caches, positions [B, 1] -> (logits [B, V],
-    caches)."""
+    caches).  Under a mesh as :func:`repro_torch.models.transformer.
+    forward`: the rank's rows, every vocab column of an inference
+    forward's logits, the rank's cache blocks."""
     specs = None
     if sharding.active(ctx):
-        if mode != "train" or ctx.tp_size() > 1:
-            raise NotImplementedError(
-                f"{cfg.name}: the port shards an encoder-decoder model's "
-                f"training over 'data' only (ROADMAP.md queue 1 item 4)")
         specs = sharding.tree_specs(encdec_schema(cfg), ctx)
         top = {k: v for k, v in params.items()
                if k not in ("encoder", "decoder")}
@@ -182,7 +202,7 @@ def forward_encdec(params, tokens, cfg: ModelConfig, *, mode: str,
                 params["encoder"]["final_norm"],
                 specs["encoder"]["final_norm"], ctx)),
             decoder=params["decoder"])
-    x = embed(params["embedding"], tokens)
+    x = embed(params["embedding"], tokens, cfg, ctx)
     enc = None
     if mode in ("train", "prefill"):
         remat = cfg.remat and mode == "train"
@@ -191,28 +211,32 @@ def forward_encdec(params, tokens, cfg: ModelConfig, *, mode: str,
     elif mode != "decode":
         raise ValueError(f"mode {mode!r} not in ('train', 'prefill', "
                          f"'decode')")
+    blocks = params["decoder"]["blocks"]
+    bspecs = None if specs is None else specs["decoder"]["blocks"]
     if mode == "train":
         fn = functools.partial(_dec_block, enc=enc, cfg=cfg, mode="train",
-                               positions=positions)
+                               positions=positions, ctx=ctx)
         for i in range(cfg.num_layers):
             name = f"layer_{i:02d}"
-            x = _layer(fn, remat, params["decoder"]["blocks"][name], x,
-                       ctx=ctx, specs=None if specs is None
-                       else specs["decoder"]["blocks"][name])[0]
+            x = _layer(fn, remat, blocks[name], x, ctx=ctx, specs=None
+                       if bspecs is None else bspecs[name])[0]
         x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-        return unembed(params["embedding"], x, cfg), torch.zeros(
+        return unembed(params["embedding"], x, cfg, ctx), torch.zeros(
             (), dtype=torch.float32, device=x.device)
     new_caches = {}
     for i in range(cfg.num_layers):
         name = f"layer_{i:02d}"
+        lp = blocks[name] if bspecs is None else \
+            sharding.fsdp(blocks[name], bspecs[name], ctx)
         x, new_caches[name] = _dec_block(
-            params["decoder"]["blocks"][name], x, enc, cfg, mode=mode,
-            positions=positions,
-            cache=caches[name] if mode == "decode" else None)
+            lp, x, enc, cfg, mode=mode, positions=positions,
+            cache=caches[name] if mode == "decode" else None, ctx=ctx,
+            cache_len=cache_len)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if mode == "prefill":
         x = x[:, -1:, :]
-    return unembed(params["embedding"], x, cfg)[:, 0], new_caches
+    return whole_logits(unembed(params["embedding"], x, cfg, ctx)[:, 0],
+                        cfg, ctx), new_caches
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int, device):

@@ -98,6 +98,14 @@ def unembed(params, x, cfg: ModelConfig, ctx=None):
     return logits
 
 
+def whole_logits(logits, cfg: ModelConfig, ctx):
+    """Every vocab column of an inference forward's logits (vocab-parallel
+    ranks' columns gathered over 'model')."""
+    if vocab_parallel(cfg, ctx):
+        return sharding.gather_tp(logits, ctx, -1)
+    return logits
+
+
 # -- MLP ------------------------------------------------------------------------
 
 def mlp_schema(cfg: ModelConfig):

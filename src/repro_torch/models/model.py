@@ -12,8 +12,12 @@ are each rank's blocks (:meth:`Model.shard_params` of one full tree) and
 the batch its rows; the loss is the global one on every rank: the masked
 sums and counts are summed over the data axes, the vocab-parallel max and
 log-sum-exp over 'model', and the moe ``aux`` averaged over the data
-ranks.  The dense and moe families run tensor parallel; the others only
-under one 'model' rank.
+ranks.  Every family runs tensor parallel.  Prefill and decode take the
+global batch and return every row and vocab column of the logits on
+every rank; each rank keeps its blocks of the decode caches
+(:meth:`Model.cache_specs`, the reference's rule): the batch over the
+data axes and, on a 4-D leaf, axis 1 over 'model' (a KV cache's
+positions, decoded context parallel; an SSM state's heads).
 """
 from __future__ import annotations
 
@@ -28,10 +32,6 @@ from repro_torch.models import schema as schema_mod
 from repro_torch.models import sharding
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.layers import vocab_parallel
-
-#: the families whose layers run tensor parallel over 'model'
-TP_FAMILIES = ("dense", "moe")
-
 
 def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4,
                   ctx=None, split_vocab: bool = False):
@@ -96,19 +96,20 @@ class Model:
         return sharding.shard_tree(params, self.param_specs(ctx), ctx)
 
     def check_mesh(self, ctx) -> None:
-        """Raise where the port cannot run this family on ``ctx``."""
-        if not sharding.active(ctx):
-            return
-        if ctx.tp_size() > 1 and self.cfg.family not in TP_FAMILIES:
-            raise NotImplementedError(
-                f"{self.cfg.name}: the {self.cfg.family} family runs under "
-                f"one 'model' rank only; its tensor-parallel layers (lru, "
-                f"ssm_inner, cross attention) are ROADMAP.md queue 1 item "
-                f"4's next slice")
-        if ctx.sequence_parallel:
+        """Raise where the port cannot run on ``ctx``: every family runs
+        tensor parallel; ``sequence_parallel`` is not ported."""
+        if sharding.active(ctx) and ctx.sequence_parallel:
             raise NotImplementedError(
                 "sequence_parallel: the port keeps activations replicated "
                 "over 'model' (ROADMAP.md queue 1 item 4)")
+
+    def cache_specs(self, ctx, batch: int, max_len: int):
+        """The spec of every decode-cache leaf for ``batch`` sequences of
+        up to ``max_len`` positions (the caches' counterpart of
+        :meth:`param_specs`; :func:`sharding.cache_spec`)."""
+        return sharding.map_tree(
+            lambda t: sharding.cache_spec(tuple(t.shape), ctx),
+            self._global_caches(batch, max_len, "meta"))
 
     # -- forwards --------------------------------------------------------------
     def loss(self, params, batch, ctx=None):
@@ -142,71 +143,88 @@ class Model:
         return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
     def prefill(self, params, tokens, pad_cache_to: Optional[int] = None, *,
-                patch_embeds=None, frames=None):
+                patch_embeds=None, frames=None, ctx=None):
         """tokens [B, S] -> (last-position logits [B, V], caches).  A vision
         model may take ``patch_embeds`` [B, P, d], prepended to the text;
         an encoder-decoder model needs ``frames`` [B, Se, d] for its
-        encoder."""
+        encoder.
+
+        Under a mesh the inputs are the global batch and the logits every
+        row and column on every rank; the rank computes its rows (those of
+        its data index where the batch divides over the data axes, else
+        all) and returns its blocks of the caches (:meth:`cache_specs`).
+        Full-attention self caches are padded to ``pad_cache_to``
+        positions (before they split over 'model')."""
         cfg = self.cfg
+        self.check_mesh(ctx)
         if patch_embeds is not None and cfg.frontend != "vision":
             raise ValueError(f"{cfg.name}: patch_embeds given to a model "
                              f"with no vision frontend")
+        if cfg.is_encdec and frames is None:
+            raise ValueError(f"{cfg.name}: an encoder-decoder prefill "
+                             f"needs frames [B, Se, d]")
+        if frames is not None and not cfg.is_encdec:
+            raise ValueError(f"{cfg.name}: frames given to a model "
+                             f"with no encoder")
+        ctx, rows = sharding.batch_rows(ctx, tokens.shape[0])
+        pick = lambda t: None if t is None else t[rows]
+        kw = dict(mode="prefill", ctx=ctx, cache_len=pad_cache_to)
         if cfg.is_encdec:
-            if frames is None:
-                raise ValueError(f"{cfg.name}: an encoder-decoder prefill "
-                                 f"needs frames [B, Se, d]")
             logits, caches = encdec_mod.forward_encdec(
-                params, tokens, cfg, mode="prefill", frames=frames)
+                params, tokens[rows], cfg, frames=pick(frames), **kw)
         else:
-            if frames is not None:
-                raise ValueError(f"{cfg.name}: frames given to a model "
-                                 f"with no encoder")
-            logits, caches = tf_mod.forward(params, tokens, cfg,
-                                            mode="prefill",
-                                            patch_embeds=patch_embeds)
-        if pad_cache_to is not None:
-            caches = self.pad_caches(caches, pad_cache_to)
-        return logits, caches
+            logits, caches = tf_mod.forward(
+                params, tokens[rows], cfg, patch_embeds=pick(patch_embeds),
+                **kw)
+        return sharding.gather_rows(logits, ctx), caches
 
-    def pad_caches(self, caches, target_len: int):
-        """Extend full-attention KV caches' seq dim to target_len (for
-        decode continuation after prefill).  Ring (local) caches,
-        recurrent states and cross-attention caches are fixed-size and
-        left untouched."""
-        if self.cfg.attention == "local":
-            return caches
-
-        def _p(t):
-            cur = t.shape[1]
-            if cur >= target_len:
-                return t
-            pad = torch.zeros((t.shape[0], target_len - cur)
-                              + tuple(t.shape[2:]), dtype=t.dtype,
-                              device=t.device)
-            return torch.cat([t, pad], dim=1)
-
-        def _kv(c):
-            return ({kk: _p(t) for kk, t in c.items()}
-                    if isinstance(c, dict) else c)
+    def decode_step(self, params, tokens, caches, positions, ctx=None):
+        """tokens [B,1] int; positions [B,1] int (absolute).  Under a mesh
+        ``tokens`` and ``positions`` are the global batch, ``caches`` the
+        rank's blocks (as :meth:`prefill` and :meth:`init_decode_caches`
+        give them), and the logits every row and column."""
+        self.check_mesh(ctx)
+        ctx, rows = sharding.batch_rows(ctx, tokens.shape[0])
+        kw = dict(mode="decode", caches=caches, positions=positions[rows],
+                  ctx=ctx)
         if self.cfg.is_encdec:
-            return {name: {"self": _kv(c["self"]), "cross": c["cross"]}
-                    for name, c in caches.items()}
-        return {name: _kv(c) for name, c in caches.items()}
+            logits, caches = encdec_mod.forward_encdec(
+                params, tokens[rows], self.cfg, **kw)
+        else:
+            logits, caches = tf_mod.forward(params, tokens[rows], self.cfg,
+                                            **kw)
+        return sharding.gather_rows(logits, ctx), caches
 
-    def decode_step(self, params, tokens, caches, positions):
-        """tokens [B,1] int; positions [B,1] int (absolute)."""
-        if self.cfg.is_encdec:
-            return encdec_mod.forward_encdec(params, tokens, self.cfg,
-                                             mode="decode", caches=caches,
-                                             positions=positions)
-        return tf_mod.forward(params, tokens, self.cfg, mode="decode",
-                              caches=caches, positions=positions)
-
-    def init_decode_caches(self, batch: int, max_len: int, device):
+    def _global_caches(self, batch: int, max_len: int, device):
         if self.cfg.is_encdec:
             return encdec_mod.init_decode_caches(self.cfg, batch, max_len,
                                                  device)
         return tf_mod.init_decode_caches(self.cfg, batch, max_len, device)
+
+    def init_decode_caches(self, batch: int, max_len: int, device,
+                           ctx=None):
+        """Zero caches for ``batch`` sequences of up to ``max_len``
+        positions; under a mesh the rank's blocks (:meth:`cache_specs`).
+        Under 'model' ranks every 4-D leaf must split (a KV cache's
+        positions: the context-parallel decode reads them as split)."""
+        if not sharding.active(ctx):
+            return self._global_caches(batch, max_len, device)
+        self.check_mesh(ctx)
+        full = self._global_caches(batch, max_len, "meta")
+        specs = self.cache_specs(ctx, batch, max_len)
+
+        def local(t, spec):
+            if t.ndim == 4 and ctx.tp_size() > 1 and \
+                    ctx.tp_axis not in sharding.sharded_axes(spec):
+                raise ValueError(
+                    f"{self.cfg.name}: a decode cache of shape "
+                    f"{tuple(t.shape)} does not split over "
+                    f"{ctx.tp_size()} 'model' ranks; the context-parallel "
+                    f"decode needs a max_len that divides")
+            return torch.zeros(sharding.local_shape(tuple(t.shape), spec,
+                                                    ctx),
+                               dtype=t.dtype, device=device)
+        return sharding.map_specs(local, full, specs)
 
 
 def build(cfg: ModelConfig) -> Model:

@@ -24,7 +24,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rglru_scan import ops as lru_ops
-from repro_torch.models.layers import cast
+from repro_torch.models import sharding
+from repro_torch.models.layers import cast, row_parallel
 from repro_torch.models.schema import Leaf
 
 RG_LRU_C = 8.0
@@ -58,12 +59,28 @@ def _block_diag(x, w, b):
     return y.reshape(bsz, s, lru)
 
 
-def _gates(params, xb):
-    """-> (log_a, gated_input) both [B, S, lru] f32."""
-    i = torch.sigmoid(_block_diag(xb, cast(params["gate_i_w"]),
-                                  cast(params["gate_i_b"])).float())
-    r = torch.sigmoid(_block_diag(xb, cast(params["gate_r_w"]),
-                                  cast(params["gate_r_b"])).float())
+def _gates(params, xb, ctx=None):
+    """-> (log_a, gated_input) both [B, S, lru] f32 (under 'model' ranks
+    the rank's channels).  Where the rank's channels cut a gate head (its
+    gate weights are then replicated), the heads it touches read their
+    inputs from ``xb`` gathered over 'model'."""
+    wi, bi = cast(params["gate_i_w"]), cast(params["gate_i_b"])
+    wr, br = cast(params["gate_r_w"]), cast(params["gate_r_b"])
+    n = xb.shape[-1]
+    hn, bs = wi.shape[0], wi.shape[1]
+    if hn * bs == n:
+        xh = xb
+        pick = lambda y: y
+    else:
+        c0 = ctx.tp_index() * n
+        ha, hb = c0 // bs, (c0 + n - 1) // bs + 1
+        xh = sharding.gather_tp(xb, ctx, -1, summed=True)[
+            ..., ha * bs:hb * bs]
+        wi, bi, wr, br = (sharding.enter_tp(t, ctx)[ha:hb]
+                          for t in (wi, bi, wr, br))
+        pick = lambda y: y[..., c0 - ha * bs:c0 - ha * bs + n]
+    i = torch.sigmoid(pick(_block_diag(xh, wi, bi)).float())
+    r = torch.sigmoid(pick(_block_diag(xh, wr, br)).float())
     log_a = -RG_LRU_C * F.softplus(params["lam"].float()) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (
@@ -89,12 +106,22 @@ def _conv1d(x, w, b, state=None):
 
 
 def rglru_block(params, x, cfg: ModelConfig, state: Tuple = None,
-                decode: bool = False):
+                decode: bool = False, ctx=None):
     """Griffin recurrent block.  x: [B, S, d].
 
     state: (h [B, lru] f32, conv [B, W-1, lru]) when decoding.
     Returns (out [B, S, d], new_state).
+
+    Under 'model' ranks (the ``"lru"`` channels split) the rank computes
+    its channels: ``wx``, ``wgate``, the conv and ``lam`` are its blocks,
+    ``wo`` is row-parallel, and the states in and out are the rank's
+    channels of the replicated ones (:func:`whole_state` gathers them).
     """
+    tp = sharding.tp_split(cfg.d_model, ctx, "lru")
+    if tp:
+        x = sharding.enter_tp(x, ctx)
+        if state is not None:
+            state = tuple(sharding.own_block(t, ctx, -1) for t in state)
     xb = torch.matmul(x, cast(params["wx"]))
     gate = torch.matmul(x, cast(params["wgate"]))
 
@@ -102,7 +129,7 @@ def rglru_block(params, x, cfg: ModelConfig, state: Tuple = None,
     xb, new_conv = _conv1d(xb, cast(params["conv_w"]), cast(params["conv_b"]),
                            conv_state)
 
-    log_a, gated = _gates(params, xb)
+    log_a, gated = _gates(params, xb, ctx if tp else None)
     if decode:
         h_prev = state[0]                            # [B, lru] f32
         h = torch.exp(log_a[:, 0]) * h_prev + gated[:, 0]
@@ -112,8 +139,20 @@ def rglru_block(params, x, cfg: ModelConfig, state: Tuple = None,
         hs = lru_ops.lru(log_a, gated)               # [B, S, lru]
         new_h = hs[:, -1]
     out = F.gelu(gate, approximate="tanh") * hs.to(x.dtype)
-    out = torch.matmul(out, cast(params["wo"]))
+    if tp:
+        out = row_parallel(out, params["wo"], ctx)
+    else:
+        out = torch.matmul(out, cast(params["wo"]))
     return out, (new_h, new_conv)
+
+
+def whole_state(state, cfg: ModelConfig, ctx):
+    """The replicated decode state from the ranks' channels (gathered over
+    'model': the same bits on every rank; no graph)."""
+    if not sharding.tp_split(cfg.d_model, ctx, "lru"):
+        return state
+    return tuple(sharding.all_gather(t, ctx, ctx.tp_axis, t.ndim - 1)
+                 for t in state)
 
 
 def init_state(cfg: ModelConfig, batch: int, device):

@@ -219,14 +219,18 @@ def shard(full: torch.Tensor, spec: Spec, ctx: ShardingCtx) -> torch.Tensor:
     return full[block(tuple(full.shape), spec, ctx)].clone()
 
 
-def unshard(local: torch.Tensor, spec: Spec,
-            ctx: ShardingCtx) -> torch.Tensor:
-    """The whole leaf from every rank's block (all-gathers; no graph)."""
+def unshard(local: torch.Tensor, spec: Spec, ctx: ShardingCtx,
+            device=None) -> torch.Tensor:
+    """The whole leaf from every rank's block (all-gathers; no graph), on
+    ``device`` (default: the block's).  Under gloo a leaf bound for the
+    host is gathered there (no copy back to the card)."""
     out = local.detach()
+    if device is not None and ctx.mesh.backend == "gloo":
+        out = out.to(device)
     for dim, entry in enumerate(spec):
         if entry is not None:
             out = all_gather(out, ctx, entry, dim)
-    return out
+    return out if device is None else out.to(device)
 
 
 def tree_specs(schema, ctx: ShardingCtx):
@@ -237,20 +241,44 @@ def tree_specs(schema, ctx: ShardingCtx):
 
 
 def map_specs(fn, tree, specs):
-    """``fn(leaf, spec)`` over nested dicts of tensors and their specs."""
+    """``fn(leaf, spec)`` over nested dicts (and tuples) of tensors and
+    their specs."""
     if tree is None:
         return None
     if isinstance(tree, dict):
         return {k: map_specs(fn, v, specs[k]) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_specs(fn, t, s) for t, s in zip(tree, specs))
     return fn(tree, specs)
+
+
+def map_tree(fn, tree):
+    """``fn(leaf)`` over nested dicts and tuples of tensors."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(map_tree(fn, t) for t in tree)
+    return fn(tree)
+
+
+def cache_spec(shape: Tuple[int, ...], ctx: ShardingCtx) -> Spec:
+    """The spec of one layer's decode-cache leaf of ``shape`` (global):
+    the reference's rule for its caches (``Model.input_shardings``) less
+    its leading ``"layers"`` entry: the batch over the data axes and, on a
+    4-D leaf, axis 1 on ``"seq_kv"`` (a KV cache's positions, an SSM
+    state's heads)."""
+    axes = ["batch"] + [None] * (len(shape) - 1)
+    if len(shape) == 4:
+        axes[1] = "seq_kv"
+    return ctx.spec(tuple(axes), shape)
 
 
 def shard_tree(tree, specs, ctx: ShardingCtx):
     return map_specs(lambda t, s: shard(t, s, ctx), tree, specs)
 
 
-def unshard_tree(tree, specs, ctx: ShardingCtx):
-    return map_specs(lambda t, s: unshard(t, s, ctx), tree, specs)
+def unshard_tree(tree, specs, ctx: ShardingCtx, device=None):
+    return map_specs(lambda t, s: unshard(t, s, ctx, device), tree, specs)
 
 
 def sharded_axes(spec: Spec) -> Tuple[str, ...]:
@@ -389,13 +417,50 @@ def leave_tp(x: torch.Tensor, ctx) -> torch.Tensor:
     return _Reduce.apply(x, ctx, ctx.tp_axis)
 
 
-def gather_tp(x: torch.Tensor, ctx, dim: int) -> torch.Tensor:
-    """Each 'model' rank's part of a value used replicated afterwards:
-    all-gathered along ``dim`` forward, the rank's part of the (replicated)
-    gradient backward."""
+def gather_tp(x: torch.Tensor, ctx, dim: int,
+              summed: bool = False) -> torch.Tensor:
+    """Each 'model' rank's part of a value all-gathered along ``dim``.
+    Backward, the rank's part of the gradient: of the replicated gradient
+    where the gathered value is used replicated, or (``summed``, where each
+    rank uses parts of it of its own) of the ranks' gradients summed over
+    'model' (a reduce-scatter)."""
     if not active(ctx) or ctx.tp_size() == 1:
         return x
-    return _Gather.apply(x, ctx, ctx.tp_axis, dim, False)
+    return _Gather.apply(x, ctx, ctx.tp_axis, dim, summed)
+
+
+def tp_split(n: int, ctx, logical: str = "seq_kv") -> bool:
+    """Whether a dimension of ``n`` on ``logical`` splits over 'model'
+    (the rules and the divisibility guard of :meth:`ShardingCtx.spec`)."""
+    return active(ctx) and ctx.tp_size() > 1 and \
+        ctx.spec((logical,), (n,)) == (ctx.tp_axis,)
+
+
+def own_block(x: torch.Tensor, ctx, dim: int) -> torch.Tensor:
+    """This 'model' rank's block of ``x`` along ``dim`` (a view)."""
+    n = x.shape[dim] // ctx.tp_size()
+    return x.narrow(dim, ctx.tp_index() * n, n)
+
+
+def batch_rows(ctx, batch: int):
+    """``(ctx, rows)`` of an inference forward on a global batch of
+    ``batch`` rows: this rank's rows where they divide over the data axes
+    (the spec of ``"batch"``), else every row, with a ctx whose batch is
+    not split (no data axes)."""
+    if not active(ctx):
+        return ctx, slice(None)
+    spec = ctx.spec(("batch",), (batch,))
+    if not spec:
+        return dataclasses.replace(ctx, dp_axes=()), slice(None)
+    return ctx, block((batch,), spec, ctx)[0]
+
+
+def gather_rows(x: torch.Tensor, ctx) -> torch.Tensor:
+    """The data ranks' rows of an inference result gathered along dim 0
+    (no graph; ``x`` as it is where the batch is not split)."""
+    if not active(ctx) or ctx.dp_size() == 1:
+        return x
+    return all_gather(x, ctx, ctx.dp_axes, 0)
 
 
 def reduce_dp(x: torch.Tensor, ctx) -> torch.Tensor:

@@ -30,7 +30,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
-from repro_torch.models.layers import cast, rmsnorm
+from repro_torch.models import sharding
+from repro_torch.models.layers import cast, rmsnorm, row_parallel
 from repro_torch.models.rglru import _conv1d
 from repro_torch.models.schema import Leaf
 
@@ -143,28 +144,93 @@ def ssd_chunked(x, dt, b, c, a_log_neg, chunk: int, init_state=None):
     return y, torch.swapaxes(st, -1, -2)                  # [B,H,P,N]
 
 
+def _heads(cfg: ModelConfig, ctx):
+    """This rank's SSD heads ``(h0, h1)``: its block under 'model' ranks,
+    else all of them."""
+    nh = cfg.ssm_heads
+    if not sharding.active(ctx) or ctx.tp_size() == 1:
+        return 0, nh
+    if nh % ctx.tp_size():
+        raise ValueError(f"{cfg.name}: {nh} SSD heads do not split over "
+                         f"{ctx.tp_size()} 'model' ranks")
+    n = nh // ctx.tp_size()
+    return ctx.tp_index() * n, (ctx.tp_index() + 1) * n
+
+
+def _gated_norm(y, scale, cfg: ModelConfig, ctx, tp: bool):
+    """RMSNorm over all of ``d_inner``: under 'model' ranks each holds its
+    heads' channels, and the sum of squares is summed over 'model' in
+    f32."""
+    if not tp:
+        return rmsnorm({"scale": scale}, y, cfg.norm_eps)
+    yf = y.float()
+    ss = torch.sum(torch.square(yf), dim=-1, keepdim=True)
+    ss = sharding.enter_tp(sharding.leave_tp(ss, ctx), ctx)
+    yn = yf * torch.rsqrt(ss / cfg.d_inner + cfg.norm_eps)
+    return (yn * scale.float()).to(y.dtype)
+
+
 def ssm_block(params, x, cfg: ModelConfig, state: Tuple = None,
-              decode: bool = False):
-    """x: [B, S, d] -> (out [B, S, d], new_state (conv, ssm))."""
+              decode: bool = False, ctx=None):
+    """x: [B, S, d] -> (out [B, S, d], new_state (conv, ssm)).
+
+    Under 'model' ranks the rank runs its block of the SSD heads.  The
+    fused ``in_proj`` columns ``[z | x | B | C | dt]`` split contiguously,
+    which does not follow the heads, so the rank's products are gathered
+    over 'model' and re-sliced: its heads' ``z``, ``x`` and ``dt`` and all
+    of ``B`` and ``C`` (the conv weights likewise); the gated norm sums
+    its squares over 'model'; ``out_proj`` is row-parallel.  The conv
+    state stays whole (the gathered inputs' last W-1 rows, the same bits
+    on every rank) and the SSM state is the rank's heads."""
     di, g, n, nh, p = (cfg.d_inner, cfg.ssm_groups, cfg.ssm_state,
                        cfg.ssm_heads, cfg.ssm_head_dim)
-    proj = torch.matmul(x, cast(params["in_proj"]))
-    z, xbc, dt_raw = torch.split(proj, [di, di + 2 * g * n, nh], dim=-1)
+    d_conv = di + 2 * g * n
+    h0, h1 = _heads(cfg, ctx)
+    tp = (h0, h1) != (0, nh)
+    w = cast(params["in_proj"])
+    cw, cb = cast(params["conv_w"]), cast(params["conv_b"])
+    hp = lambda t: t
+    if tp:
+        if w.shape[1] != 2 * di + 2 * g * n + nh:
+            proj = sharding.gather_tp(torch.matmul(
+                sharding.enter_tp(x, ctx), w), ctx, -1, summed=True)
+        else:
+            proj = sharding.enter_tp(torch.matmul(x, w), ctx)
+        if cw.shape[1] != d_conv:
+            cw = sharding.gather_tp(cw, ctx, 1, summed=True)
+            cb = sharding.gather_tp(cb, ctx, 0, summed=True)
+        else:
+            cw, cb = sharding.enter_tp(cw, ctx), sharding.enter_tp(cb, ctx)
+        hp = lambda t: sharding.enter_tp(t, ctx)[h0:h1]
+    else:
+        proj = torch.matmul(x, w)
+    bsz, s = x.shape[0], x.shape[1]
+    z, xbc, dt_raw = torch.split(proj, [di, d_conv, nh], dim=-1)
+    c0, c1 = h0 * p, h1 * p
+    z, dt_raw = z[..., c0:c1], dt_raw[..., h0:h1]
 
     conv_state = state[0] if state is not None else None
-    xbc, new_conv = _conv1d(xbc, cast(params["conv_w"]),
-                            cast(params["conv_b"]), conv_state)
+    if tp:
+        sel = torch.cat([torch.arange(c0, c1), torch.arange(di, d_conv)]
+                        ).to(x.device)
+        pad = xbc.new_zeros((bsz, cfg.conv_width - 1, d_conv)) \
+            if conv_state is None else conv_state.to(xbc.dtype)
+        new_conv = torch.cat([pad, xbc], dim=1)[:, -(cfg.conv_width - 1):]
+        xbc, _ = _conv1d(xbc[..., sel], cw[:, sel], cb[sel], pad[..., sel])
+    else:
+        xbc, new_conv = _conv1d(xbc, cw, cb, conv_state)
     xbc = F.silu(xbc)
-    xs, b, c = torch.split(xbc, [di, g * n, g * n], dim=-1)
-    bsz, s = x.shape[0], x.shape[1]
-    xs = xs.reshape(bsz, s, nh, p)
+    nl = h1 - h0
+    xs, b, c = torch.split(xbc, [nl * p, g * n, g * n], dim=-1)
+    xs = xs.reshape(bsz, s, nl, p)
     b = b.reshape(bsz, s, g, n)
     c = c.reshape(bsz, s, g, n)
-    dt = F.softplus(dt_raw.float() + params["dt_bias"].float())
+    a_log, d_skip = hp(params["a_log"]), hp(params["d_skip"])
+    dt = F.softplus(dt_raw.float() + hp(params["dt_bias"]).float())
 
     if decode:
         ssm_state = state[1]                              # [B, H, P, N] fp32
-        a = -torch.exp(params["a_log"].float())
+        a = -torch.exp(a_log.float())
         da = torch.exp(dt[:, 0] * a)                      # [B, H]
         bx = torch.einsum("bhp,bn->bhpn",
                           (xs[:, 0] * dt[:, 0, :, None]).float(),
@@ -175,12 +241,14 @@ def ssm_block(params, x, cfg: ModelConfig, state: Tuple = None,
     else:
         init = state[1] if state is not None else None
         y, new_ssm = ssd_ops.ssd(xs, dt, b[:, :, 0], c[:, :, 0],
-                                 params["a_log"], min(cfg.ssm_chunk, s), init)
+                                 a_log, min(cfg.ssm_chunk, s), init)
 
-    y = y + params["d_skip"].float()[None, None, :, None] * xs.float()
-    y = y.reshape(bsz, s, di).to(x.dtype)
+    y = y + d_skip.float()[None, None, :, None] * xs.float()
+    y = y.reshape(bsz, s, nl * p).to(x.dtype)
     y = y * F.silu(z)                                     # gated
-    y = rmsnorm({"scale": params["norm_scale"]}, y, cfg.norm_eps)
+    y = _gated_norm(y, params["norm_scale"], cfg, ctx, tp)
+    if tp:
+        return row_parallel(y, params["out_proj"], ctx), (new_conv, new_ssm)
     out = torch.matmul(y, cast(params["out_proj"]))
     return out, (new_conv, new_ssm)
 

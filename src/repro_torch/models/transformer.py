@@ -24,13 +24,16 @@ An moe layer's recompute takes the expert choices its forward made
 Decode writes the new token's K/V into the attention caches in place (it
 saves a copy of every cache per step) and returns the caches.
 
-A training forward under a ``ShardingCtx`` (``models.sharding``) takes
-each rank's blocks of the parameters and its rows of the batch: the
-leaves outside the layers are gathered over 'data' (FSDP) at the start,
-each layer's inside the layer (inside its rematerialization too, so a
-layer's gathered weights live only while it runs), and the dense and moe
-layers run tensor parallel over 'model' (``attention``, ``layers``,
-``moe``).
+A forward under a ``ShardingCtx`` (``models.sharding``) takes each rank's
+blocks of the parameters and its rows of the batch: the leaves outside
+the layers are gathered over 'data' (FSDP) at the start, each layer's
+inside the layer (in training inside its rematerialization too, so a
+layer's gathered weights live only while it runs), and every layer runs
+tensor parallel over 'model' (``attention``, ``layers``, ``moe``,
+``rglru``, ``ssm``).  Prefill and decode return every vocab column; their
+caches are the rank's blocks (``Model.cache_specs``): a KV cache's
+positions split over 'model' and decoded context parallel
+(``attention.decode_attend``).
 """
 from __future__ import annotations
 
@@ -48,7 +51,7 @@ from repro_torch.models import sharding
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     COMPUTE_DTYPE, cast, embed, embedding_schema, mlp, mlp_schema, rmsnorm,
-    rmsnorm_schema, unembed,
+    rmsnorm_schema, unembed, whole_logits,
 )
 from repro_torch.models.schema import Leaf
 
@@ -113,41 +116,39 @@ def _ring_gather(kv, window: int):
 
 
 def attn_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
-               cache=None, routing=None, ctx=None):
-    """-> (x, new cache (None in train mode), moe aux loss or None)."""
+               cache=None, routing=None, ctx=None, cache_len=None):
+    """-> (x, new cache (None in train mode), moe aux loss or None).
+    Under a mesh a prefill's cache holds every KV head and, where they
+    divide over 'model', the rank's block of the positions (padded first
+    to ``cache_len``); decode reads and writes that block."""
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     window = cfg.window if cfg.attention == "local" else 0
-    q, k, v = attn.qkv_project(lp["attn"], h, cfg, positions=positions,
-                               ctx=ctx)
+    tp = sharding.active(ctx) and ctx.tp_size() > 1
 
     if mode == "decode":
-        b = x.shape[0]
-        pos = positions[:, 0]                              # [B]
-        rows = torch.arange(b, device=x.device)
-        kc, vc = cache["k"], cache["v"]
-        if window > 0:
-            slot = pos % window
-            kc[rows, slot] = k[:, 0]
-            vc[rows, slot] = v[:, 0]
-            j = torch.arange(kc.shape[1], device=x.device)
-            valid = (j[None, :] <= pos[:, None]) | \
-                (pos[:, None] >= window - 1)
-            o = attn.attend_decode(q, kc, vc, valid_mask=valid)
+        if tp:
+            q, k, v = attn.decode_qkv(lp["attn"], h, cfg, positions, ctx)
         else:
-            kc[rows, pos] = k[:, 0]
-            vc[rows, pos] = v[:, 0]
-            o = attn.attend_decode(q, kc, vc, cache_len=pos + 1)
-        new_cache = {"k": kc, "v": vc}
+            q, k, v = attn.qkv_project(lp["attn"], h, cfg,
+                                       positions=positions)
+        new_cache, o = attn.decode_attend(q, k, v, cache, positions[:, 0],
+                                          window, ctx if tp else None)
     else:
+        q, k, v = attn.qkv_project(lp["attn"], h, cfg, positions=positions,
+                                   ctx=ctx)
         o = attn.attend_prefill(q, k, v, causal=True, window=window,
                                 cfg=cfg, ctx=ctx)
-        if mode == "train":
-            new_cache = None
-        elif window > 0:
-            new_cache = {"k": _ring_gather(k, window),
-                         "v": _ring_gather(v, window)}
-        else:
-            new_cache = {"k": k, "v": v}
+        new_cache = None
+        if mode == "prefill":
+            k, v = (attn.whole_kv(t, cfg, x.shape[1], ctx) for t in (k, v))
+            if window > 0:       # a ring: never padded, always decoded
+                k, v = _ring_gather(k, window), _ring_gather(v, window)
+                cache_len, decodable = None, True
+            else:
+                decodable = cache_len is not None
+            new_cache = {
+                "k": attn.cache_positions(k, ctx, cache_len, decodable),
+                "v": attn.cache_positions(v, ctx, cache_len, decodable)}
 
     x = x + attn.out_project(lp["attn"], o, cfg, ctx)
     h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
@@ -158,20 +159,22 @@ def attn_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
 
 
 def rec_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
-              cache=None):
+              cache=None, ctx=None, cache_len=None):
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     o, new_state = rglru_mod.rglru_block(lp["rec"], h, cfg, state=cache,
-                                         decode=(mode == "decode"))
+                                         decode=(mode == "decode"), ctx=ctx)
+    if mode != "train":
+        new_state = rglru_mod.whole_state(new_state, cfg, ctx)
     x = x + o
     h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + mlp(lp["mlp"], h2, cfg), new_state, None
+    return x + mlp(lp["mlp"], h2, cfg, ctx), new_state, None
 
 
 def ssm_block_apply(lp, x, cfg: ModelConfig, *, mode: str, positions,
-                    cache=None):
+                    cache=None, ctx=None, cache_len=None):
     h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
     o, new_state = ssm_mod.ssm_block(lp["ssm"], h, cfg, state=cache,
-                                     decode=(mode == "decode"))
+                                     decode=(mode == "decode"), ctx=ctx)
     return x + o, new_state, None
 
 
@@ -198,7 +201,7 @@ def _sharded_layer(fn, specs, ctx):
 
 
 def forward(params, tokens, cfg: ModelConfig, *, mode: str, caches=None,
-            positions=None, patch_embeds=None, ctx=None):
+            positions=None, patch_embeds=None, ctx=None, cache_len=None):
     """Shared forward.
 
     train:   tokens [B, S] (a vision model: and optionally patch_embeds
@@ -207,15 +210,15 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, caches=None,
     prefill: the same inputs -> (last_logits [B, V], caches)
     decode:  tokens [B, 1], positions [B, 1] = current absolute position
              per sequence -> (logits [B, V], caches)
+
+    Under a mesh the inputs are the rank's rows, prefill and decode
+    return every vocab column, and the caches are the rank's blocks (a
+    prefill's attention caches padded to ``cache_len`` first).
     """
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
     specs = None
     if sharding.active(ctx):
-        if mode != "train":
-            raise NotImplementedError(
-                f"mode {mode!r} under a mesh: the port shards training "
-                f"only (ROADMAP.md queue 1 item 4)")
         specs = sharding.tree_specs(model_schema(cfg), ctx)
         top = {k: v for k, v in params.items() if k != "blocks"}
         params = dict(sharding.fsdp(top, specs, ctx),
@@ -234,11 +237,9 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, caches=None,
         for i, kind in enumerate(cfg.layer_kinds()):
             name = f"layer_{i:02d}"
             kw = {"routing": {}} if kind == "moe" else {}
-            if kind in ("attn", "moe"):
-                kw["ctx"] = ctx
             fn = functools.partial(
                 _BLOCK_FNS[kind], cfg=cfg, mode="train", positions=positions,
-                **kw)
+                ctx=ctx, **kw)
             if specs is not None:
                 fn = _sharded_layer(fn, specs["blocks"][name], ctx)
             lp = params["blocks"][name]
@@ -254,14 +255,19 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, caches=None,
     new_caches = {}
     for i, kind in enumerate(cfg.layer_kinds()):
         name = f"layer_{i:02d}"
+        lp = params["blocks"][name]
+        if specs is not None:
+            lp = sharding.fsdp(lp, specs["blocks"][name], ctx)
         x, new_caches[name], _ = _BLOCK_FNS[kind](
-            params["blocks"][name], x, cfg, mode=mode, positions=positions,
-            cache=caches[name] if mode == "decode" else None)
+            lp, x, cfg, mode=mode, positions=positions,
+            cache=caches[name] if mode == "decode" else None, ctx=ctx,
+            cache_len=cache_len)
 
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if mode == "prefill":
         x = x[:, -1:, :]
-    return unembed(params["embedding"], x, cfg)[:, 0], new_caches
+    return whole_logits(unembed(params["embedding"], x, cfg, ctx)[:, 0],
+                        cfg, ctx), new_caches
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int, device):

@@ -17,6 +17,13 @@ decode batch (the decode path takes positions [B, 1]).  KV caches live
 packed per slot in one ``[B, max_len, ...]`` buffer per layer; a prefill's
 caches are copied into its slot in place.
 
+Under a mesh (``ctx``, as the reference's engine takes one) every rank
+runs the same admission and schedule on the same host state: the slots
+split over the data axes (where they divide), every rank runs every
+prefill and each splices it into its own block of the caches
+(:meth:`Model.cache_specs`), and a decode step returns every slot's
+logits on every rank, so each rank picks the same tokens.
+
 An optional ``recorder`` observes every prefill, decode batch and tick
 boundary through ``on_prefill(prompt_len)``, ``on_decode(positions)`` and
 ``on_tick(queued, active)``, at the same points as the reference's
@@ -34,6 +41,7 @@ import torch
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import sharding
 from repro_torch.models.model import Model
 
 
@@ -88,16 +96,23 @@ def check_servable(cfg: ModelConfig, max_len: int) -> None:
 
 class ServingEngine:
     def __init__(self, model: Model, params, batch_slots: int = 4,
-                 max_len: int = 256, recorder: Any = None, device=None):
+                 max_len: int = 256, recorder: Any = None, device=None,
+                 ctx=None):
         check_servable(model.cfg, max_len)
         self.model = model
         self.params = params
+        self.ctx = ctx
+        if sharding.active(ctx) and device is None:
+            device = ctx.mesh.device
         self.device = device_mod.resolve(device)
         self.max_len = max_len
         self.recorder = recorder
 
         self.caches = model.init_decode_caches(batch_slots, max_len,
-                                               self.device)
+                                               self.device, ctx=ctx)
+        # the slots whose cache rows this rank holds
+        rows = sharding.batch_rows(ctx, batch_slots)[1]
+        self.own = range(batch_slots)[rows]
         self.positions = np.zeros((batch_slots,), np.int32)
         self.active: List[Optional[Request]] = [None] * batch_slots
         self.last_token = np.zeros((batch_slots,), np.int32)
@@ -121,10 +136,12 @@ class ServingEngine:
         prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
                                  device=self.device)[None, :]
         logits, caches = self.model.prefill(self.params, prompt,
-                                            pad_cache_to=self.max_len)
+                                            pad_cache_to=self.max_len,
+                                            ctx=self.ctx)
         tok = int(torch.argmax(logits[0]))
         req.generated.append(tok)
-        _splice(self.caches, caches, slot)
+        if slot in self.own:
+            _splice(self.caches, caches, slot - self.own.start)
         self.active[slot] = req
         self.positions[slot] = len(req.prompt)
         self.last_token[slot] = tok
@@ -164,7 +181,7 @@ class ServingEngine:
         positions = torch.as_tensor(self.positions.astype(np.int64),
                                     device=self.device)[:, None]
         logits, self.caches = self.model.decode_step(
-            self.params, tokens, self.caches, positions)
+            self.params, tokens, self.caches, positions, ctx=self.ctx)
         next_tokens = torch.argmax(logits, dim=-1).cpu().numpy()
 
         for i in active_idx:

@@ -227,13 +227,20 @@ def body(rank, world, d):
 ''' % (STEP_SEQ, STEP_BATCH, STEP_SEQ)
 
 
-@pytest.fixture(scope="module")
-def step_runs(tmp_path_factory):
-    """Every case's reference and port single-device results, and its
-    sharded step (two worlds: 8 and 4 ranks)."""
-    d = tmp_path_factory.mktemp("steps")
-    want = {}
-    for name, (arch, rep, _) in STEP_CASES.items():
+def single_device_steps(cases, d):
+    """Each case's reference and port single-device loss, gradients and
+    parameters after one step, from one converted state; writes the
+    states and ``cases`` into ``d`` for :data:`STEP_BODY`."""
+    want, seen = {}, {}
+    for name, (arch, rep, _) in cases.items():
+        key = (arch, tuple(sorted(rep.items())))
+        if key in seen:             # the same config on another mesh
+            want[name] = dict(want[seen[key]])
+            with open(d / f"{name}_state.pkl", "wb") as f, \
+                    open(d / f"{seen[key]}_state.pkl", "rb") as g:
+                f.write(g.read())
+            continue
+        seen[key] = name
         ref_cfg = dataclasses.replace(ref_get(arch).reduced(), **rep)
         cfg = dataclasses.replace(get(arch).reduced(), **rep)
         ref, model = ref_build(ref_cfg), build(cfg)
@@ -260,7 +267,16 @@ def step_runs(tmp_path_factory):
         with open(d / f"{name}_state.pkl", "wb") as f:
             pickle.dump(state, f)
     with open(d / "cases.pkl", "wb") as f:
-        pickle.dump(STEP_CASES, f)
+        pickle.dump(cases, f)
+    return want
+
+
+@pytest.fixture(scope="module")
+def step_runs(tmp_path_factory):
+    """Every case's reference and port single-device results, and its
+    sharded step (two worlds: 8 and 4 ranks)."""
+    d = tmp_path_factory.mktemp("steps")
+    want = single_device_steps(STEP_CASES, d)
     for world in (8, 4):
         run_ranks(d, world, STEP_BODY)
     return {name: (want[name], _load(d / f"{name}_out.pkl"))

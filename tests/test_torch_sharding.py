@@ -4,8 +4,8 @@ reference's ``PartitionSpec`` for every parameter leaf of all ten configs
 (and the activation axes the reference constrains) on the production
 meshes ``(16, 16)`` and ``(2, 16, 16)`` and the test meshes ``(4, 2)``,
 ``(2, 2)`` and ``(1, 1)``, with ``sequence_parallel`` off and on; the
-meshes' shapes and rank coordinates; each rank's block of a leaf; and the
-families the port refuses to run tensor parallel.
+meshes' shapes and rank coordinates; each rank's block of a leaf; and
+``check_mesh``, which refuses only ``sequence_parallel``.
 
 The reference's side needs no devices: ``from_mesh`` of a
 ``jax.sharding.AbstractMesh`` builds its specs.  Specs are compared
@@ -164,21 +164,15 @@ def test_blocks_tile_the_leaf(rank):
     assert torch.equal(sharding.shard(full, (), ctx), full)
 
 
-@pytest.mark.parametrize("arch,refused", [
-    ("smollm-360m", False), ("olmoe-1b-7b", False),
-    ("llama4-scout-17b-a16e", False), ("recurrentgemma-2b", True),
-    ("mamba2-2.7b", True), ("internvl2-1b", True),
-    ("seamless-m4t-large-v2", True)])
-def test_tensor_parallel_families(arch, refused):
-    """Dense and moe run tensor parallel; the other families raise under
-    a 'model' axis of more than one rank and run under ``(n, 1)``."""
+@pytest.mark.parametrize("arch", [
+    "smollm-360m", "olmoe-1b-7b", "llama4-scout-17b-a16e",
+    "recurrentgemma-2b", "mamba2-2.7b", "internvl2-1b",
+    "seamless-m4t-large-v2"])
+def test_tensor_parallel_families(arch):
+    """Every family runs tensor parallel: ``check_mesh`` passes under
+    ``(2, 2)`` and ``(4, 1)``; ``sequence_parallel`` still raises."""
     model = build(get(arch).reduced())
-    tp = sharding.from_mesh(make_test_mesh(2, 2))
-    if refused:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            model.check_mesh(tp)
-    else:
-        model.check_mesh(tp)
+    model.check_mesh(sharding.from_mesh(make_test_mesh(2, 2)))
     model.check_mesh(sharding.from_mesh(make_test_mesh(4, 1)))
     with pytest.raises(NotImplementedError, match="sequence_parallel"):
         model.check_mesh(sharding.from_mesh(make_test_mesh(2, 1),
