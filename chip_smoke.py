@@ -191,6 +191,28 @@ on failure:
       (exact), the tokens every rank picked (equal), and the tokens that
       differ from one card's engine on the same weights with the first
       difference's top-2 logit gap (a measurement);
+   l. the dry run and sequence parallelism: (l1) seven dry-run cells at
+      full width and depth, traced in a subprocess a device (fake tensors
+      on the card, and on the CPU, the two side by side while phases j
+      and k run): olmoe-1b-7b train_4k, smollm-360m prefill_32k,
+      recurrentgemma-2b long_500k, mamba2-2.7b decode_32k, internvl2-1b
+      prefill_32k and seamless-m4t-large-v2 decode_32k on the 16 x 16
+      mesh, and mistral-large-123b train_4k on 2 x 16 x 16 with sequence
+      parallelism: each cell's trace wall, FLOPs, read and write bytes,
+      collective bytes, dominant term and mix logged, the counts on the
+      card equal to the CPU's exactly, no kernel launched and under 1 MiB
+      of the card allocated by the tracing process;
+      ``bridge_design_space`` over the seven reports on the card equal to
+      the CPU's (labels exactly, numbers within 1e-6), and
+      ``joint_frontier`` and ``serving_frontier`` on the card with their
+      kernels' launches counted; (l2) in phase j's world, k1's four
+      sharded steps again with ``sequence_parallel`` on, against one
+      card's step at the loss and gradient bounds (rank 0's one-card
+      steps of k1 reused; no timed warm step), and internvl2-1b's k2
+      prefill and
+      decodes under (1, 4) with it on at the serving bound; per rank the
+      residual stream's bytes, collective bytes and calls and the kernels'
+      launches logged beside k1's steps without it;
 
    The RG-LRU scan is held bitwise against its plain version in phase 3
    (it keeps the plain version's order) at nine cases (the serving
@@ -224,6 +246,15 @@ on failure:
    fails the run);
 
 5. report: one ``{"kernels": [...]}`` line, then the result line.
+
+``--wrapper-ab PARENT_ROOT`` times the LM kernels' wrappers of another tree
+(its ``src/repro_torch/kernels/*/ops.py``) and of this one, one call at the
+launcher prompts, in turns, and prints one ``{"wrapper_ab": [...]}`` line
+last.  ``--dryrun`` runs only phases 1-2 and l1, and prints one
+``{"dryrun": {...}}`` line last.
+``--dryrun-cells DEVICE DIR`` is l1's subprocess: it traces the cells on
+``DEVICE``, writes their artifacts and a ``summary.json`` into ``DIR``,
+and prints no result line.
 
 ``--training`` runs only phases 1-2 and the training phase (i), and prints
 one ``{"training": {...}}`` line last; ``--mesh`` only phases 1-2 and the
@@ -1106,6 +1137,51 @@ def periodic_ab(sources) -> list:
 
 
 # -- phase 4: the main path ---------------------------------------------------
+
+
+#: the LM kernels' wrappers, by their files in a tree
+WRAPPERS = {"flash_attention_fwd": "kernels/flash_attention/ops.py",
+            "rglru_scan": "kernels/rglru_scan/ops.py",
+            "ssd_scan": "kernels/ssd_scan/ops.py"}
+
+
+def wrapper_ab(parent: str, reps: int = 500) -> list:
+    """``--wrapper-ab PARENT``: the LM kernels' wrappers of another tree
+    (a parent's, unpacked with ``git archive``; its ``ops.py`` files loaded
+    beside this tree's, on the same kernels) and of this tree, each timed
+    one call at its launcher prompt in turns (parent, tree, tree, parent,
+    twice) in one process.  Returns the records of each turn."""
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    fa_case = FA_CASES[FA_PATH]
+    q, k, v = fa_inputs(fa_case, gen)
+    causal, window, q_offset = fa_case[6:9]
+    shape = LRU_CASES[LRU_PATH]
+    log_a = -torch.rand(shape, generator=gen, device=DEV) * 2.0
+    b = torch.randn(shape, generator=gen, device=DEV)
+    x, dt, bb, c, a_log, _ = ssd_inputs(SSD_CASES[SSD_PATH], gen)
+    calls = {"flash_attention_fwd": lambda m: m.flash_attention(
+                 q, k, v, causal, window, q_offset),
+             "rglru_scan": lambda m: m.lru(log_a, b),
+             "ssd_scan": lambda m: m.ssd(x, dt, bb, c, a_log)}
+    tree = {"flash_attention_fwd": fa_ops, "rglru_scan": lru_ops,
+            "ssd_scan": ssd_ops}
+    old = {}
+    for name, rel in WRAPPERS.items():
+        spec = importlib.util.spec_from_file_location(
+            f"parent_{name}_ops", Path(parent) / "src" / "repro_torch" / rel)
+        old[name] = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(old[name])
+    turns = []
+    for turn, side in enumerate(("parent", "tree", "tree", "parent") * 2):
+        mods = old if side == "parent" else tree
+        rec = {"turn": turn, "side": side}
+        for name, fn in calls.items():
+            rec[name] = time_ms(lambda: fn(mods[name]), reps)
+        turns.append(rec)
+        log(f"wrapper A/B turn {turn} ({side}): one call at the launcher "
+            f"prompts, ms: " + ", ".join(f"{n} {rec[n]:.4f}" for n in calls)
+            + f" [{card_line()}]")
+    return turns
 
 
 def load_summarize():
@@ -3409,12 +3485,18 @@ MESH_ARGV = ["--arch", "smollm-360m", "--steps", "4", "--global-batch", "8",
 ELASTIC_MESH = (4, 1)
 
 
-def _mesh_step_case(case, ctx) -> dict:
+#: rank 0's one-card step of each k1 case (its record and the gradients
+#: and parameters on the host), kept for l2's run of the same case
+_ONE_CARD: dict = {}
+
+
+def _mesh_step_case(case, ctx, grads_only: bool = False) -> dict:
     """One sharded training step of ``case`` (see :data:`MESH_CASES`) on
     this rank, then :data:`MESH_STEPS` timed ones.  Rank 0 first runs one
     card's step from the same full draw and batch; the sharded step's loss,
     gradients (gathered leaf by leaf) and updated parameters are held to
-    it."""
+    it.  ``grads_only`` (l2): the checked step alone, its loss and
+    gradients held, the parameters not gathered."""
     import dataclasses
     from repro_torch.configs.shapes import ShapeSpec
     from repro_torch.models import sharding
@@ -3464,7 +3546,12 @@ def _mesh_step_case(case, ctx) -> dict:
     rec = dict(arch=arch, layers=layers, mesh=list(shape),
                tokens_per_rank=rows * seq, frames=frames,
                want_launches=family_launches(cfg))
-    if rank0:
+    if rank0 and repr(case) in _ONE_CARD:
+        # the same draw and batch as an earlier case's (l2 repeats k1's
+        # cases with sequence parallelism): the same one-card step
+        one, want_g, want_p = _ONE_CARD[repr(case)]
+        rec.update(one, one_card_reused=True)
+    elif rank0:
         reset_counts()
         torch.cuda.synchronize(dev)
         t0 = time.perf_counter()
@@ -3472,11 +3559,14 @@ def _mesh_step_case(case, ctx) -> dict:
                                                                  dev))
         params1, opt1, m1 = opt.update(grads1, opt.init(full), full)
         torch.cuda.synchronize(dev)
-        rec.update(one_card_s=time.perf_counter() - t0,
+        one = dict(one_card_s=time.perf_counter() - t0,
                    one_card_launches=lm_counts(), one_card_loss=float(loss1),
                    one_card_grad_norm=float(m1["grad_norm"]))
+        rec.update(one)
         want_g = {n: g.cpu() for n, g in leaves_by_path(grads1)}
         want_p = {n: p.cpu() for n, p in leaves_by_path(params1)}
+        if case in FAMILY_STEPS:
+            _ONE_CARD[repr(case)] = (one, want_g, want_p)
         del loss1, grads1, params1, opt1, m1
     del full
     torch.cuda.empty_cache()
@@ -3486,7 +3576,8 @@ def _mesh_step_case(case, ctx) -> dict:
     state_opt = opt.init(local)
     walls, launches, traffic = [], [], []
     torch.cuda.reset_peak_memory_stats(dev)
-    for i in range(1 + MESH_STEPS):
+    rec["base_gib"] = torch.cuda.memory_allocated(dev) / 2 ** 30
+    for i in range(1 if grads_only else 1 + MESH_STEPS):
         batch = src.place(batch_for(i) if i else batch0, dev, ctx)
         torch.distributed.barrier()
         torch.cuda.synchronize(dev)
@@ -3504,32 +3595,34 @@ def _mesh_step_case(case, ctx) -> dict:
         del new, new_opt
         mark("steps_s")
         if i == 0:
-            rec.update(loss=float(loss), grad_norm=float(metrics["grad_norm"]))
+            rec.update(loss=float(loss), grad_norm=float(metrics["grad_norm"]),
+                       residual_bytes=sharding.residual["bytes"],
+                       residual_shape=list(sharding.residual["shape"]))
             shares, pdiff, finite = {}, 0.0, True
-            # gathered leaf by leaf (under gloo to the host on the ranks
-            # that do not compare) and compared on rank 0's card, one leaf
-            # at a time: four ranks may share the card's memory
-            dest = "cpu" if not rank0 and ctx.mesh.backend == "gloo" \
-                else None
+            # gathered leaf by leaf to rank 0 alone and compared on its
+            # card, one leaf at a time: four ranks may share the card's
+            # memory
             for (name, g), (_, p), (_, sp) in zip(
                     leaves_by_path(grads), leaves_by_path(local),
                     leaves_by_path(specs)):
-                g = sharding.unshard(g, sp, ctx, dest)
-                p = sharding.unshard(p, sp, ctx, dest)
+                g = sharding.gather_to(g, sp, ctx)
+                p = None if grads_only else sharding.gather_to(p, sp, ctx)
                 if rank0:
                     w = want_g[name].to(dev).float()
                     tol = GRAD_EPS * BF16_EPS * max(float(w.abs().max()),
                                                     1e-30)
                     shares[name] = float((g.float() - w).abs().max()) / tol
                     finite = finite and bool(torch.isfinite(g).all())
-                    pdiff = max(pdiff, float(
-                        (p - want_p[name].to(dev)).abs().max()))
+                    if p is not None:
+                        pdiff = max(pdiff, float(
+                            (p - want_p[name].to(dev)).abs().max()))
                     del w
                 del g, p
             if rank0:
                 worst = max(shares, key=shares.get)
                 rec.update(worst_leaf=worst, worst_share=shares[worst],
-                           finite=finite, param_max_diff=pdiff,
+                           finite=finite,
+                           param_max_diff=None if grads_only else pdiff,
                            loss_share=abs(rec["loss"] - rec["one_card_loss"])
                            / (TOL_EPS * BF16_EPS
                               * abs(rec["one_card_loss"])))
@@ -3795,6 +3888,8 @@ FAMILY_LRU = {"recurrentgemma-2b (1, 4)": (2, 256, 640),
               "recurrentgemma-2b (2, 2)": (2, 256, 1280)}
 FAMILY_SSD = {"mamba2-2.7b (2, 2)": (2, 256, 40, 64, 128, 256),
               "mamba2-2.7b (1, 4)": (2, 256, 20, 64, 128, 256)}
+#: (l2) the k2 case (and its mesh) served again with sequence parallelism
+SP_SERVE = (("internvl2-1b", 2, {}), (1, 4))
 
 
 def family_kernels() -> dict:
@@ -3905,8 +4000,8 @@ def _share(got, want) -> float:
 
 def _cpu_caches(caches):
     from repro_torch.models import sharding
-    return sharding.map_tree(lambda t: t.detach().to("cpu", copy=True),
-                             caches)
+    return sharding.map_tree(lambda t: None if t is None else
+                             t.detach().to("cpu", copy=True), caches)
 
 
 def _caches_share(got, want) -> float:
@@ -3991,13 +4086,14 @@ def _family_serve_case(case, ctx) -> dict:
                                        ctx=ctx, **extra)
     torch.cuda.synchronize(dev)
     rec.update(prefill_s=time.perf_counter() - t0,
+               prefill_residual_bytes=sharding.residual["bytes"],
                prefill_launches=lm_counts(),
                want_prefill_launches=family_launches(cfg, True),
                prefill_traffic=dict(sharding.traffic))
     got_logits = [logits.float().cpu()]
     same = _replicated_equal(caches, specs, ctx)
-    got_caches = [_cpu_caches(sharding.unshard_tree(caches, specs, ctx,
-                                                    "cpu"))]
+    got_caches = [_cpu_caches(sharding.gather_tree_to(caches, specs, ctx,
+                                                      device="cpu"))]
     ticks, tick_traffic, decode_launches = [], [], []
     for step, tok in enumerate(feed[0]):
         torch.cuda.synchronize(dev)
@@ -4013,8 +4109,8 @@ def _family_serve_case(case, ctx) -> dict:
         decode_launches.append(lm_counts())
         got_logits.append(logits.float().cpu())
         same = same and _replicated_equal(caches, specs, ctx)
-    got_caches.append(_cpu_caches(sharding.unshard_tree(caches, specs, ctx,
-                                                        "cpu")))
+    got_caches.append(_cpu_caches(sharding.gather_tree_to(
+        caches, specs, ctx, device="cpu")))
     rec.update(decode_s=ticks, tick_traffic=tick_traffic,
                decode_launches=decode_launches, replicated_bitwise=same,
                peak_gib=torch.cuda.max_memory_allocated(dev) / 2 ** 30)
@@ -4164,8 +4260,10 @@ def _family_engine(ctx) -> dict:
 
 def _families_work(rank, ctx_of) -> dict:
     """Phase k on one rank: (k1) the sharded steps, (k2) prefill and
-    decodes under each mesh, (k3) the engine; ``ctx_of(shape)`` gives the
-    ctx of a live mesh."""
+    decodes under each mesh, then phase l2's sequence-parallel steps and
+    prefill, then (k3) the engine; ``ctx_of(shape)`` gives the ctx of a
+    live mesh."""
+    import dataclasses
     from repro_torch.models import sharding
     out = {"steps": [], "serve": []}
     for case in FAMILY_STEPS:
@@ -4183,6 +4281,20 @@ def _families_work(rank, ctx_of) -> dict:
             if rank == 0:
                 log(f"mesh families: rank 0: serve {case[0]} on {shape} "
                     f"done in {out['serve'][-1]['case_s']:.1f} s")
+    # (l2) k1's steps and one k2 case again with sequence parallelism on,
+    # before k3's full-depth engine (so that the peaks compare with k1's)
+    sp_of = lambda shape: dataclasses.replace(ctx_of(shape),
+                                              sequence_parallel=True)
+    out["sp_steps"] = []
+    for case in FAMILY_STEPS:
+        out["sp_steps"].append(_mesh_step_case(case, sp_of(case[2]),
+                                               grads_only=True))
+        torch.cuda.empty_cache()
+        if rank == 0:
+            log(f"sequence parallel: rank 0: step {case[0]} on {case[2]} "
+                f"done in {out['sp_steps'][-1]['case_s']:.1f} s")
+    out["sp_serve"] = _family_serve_case(SP_SERVE[0], serving_ctx(sp_of(
+        SP_SERVE[1])))
     out["engine"] = _family_engine(serving_ctx(ctx_of(
         FAMILY_ENGINE["mesh"])))
     ctx = ctx_of(FAMILY_MESHES[0])
@@ -4338,6 +4450,278 @@ def phase_families(ranks) -> dict:
     return rec
 
 
+# -- phase l: the dry run and sequence parallelism -------------------------------
+
+#: (l1) one dry-run cell of each family and shape kind at full width and
+#: depth, the cheaper cells of each (the two trains are the costly ones;
+#: `--all` traces the rest): (arch, shape, multi-pod, sequence parallel)
+DRYRUN_CELLS = ((OLMOE, "train_4k", False, False),
+                ("smollm-360m", "prefill_32k", False, False),
+                ("recurrentgemma-2b", "long_500k", False, False),
+                ("mamba2-2.7b", "decode_32k", False, False),
+                ("internvl2-1b", "prefill_32k", False, False),
+                ("seamless-m4t-large-v2", "decode_32k", False, False),
+                ("mistral-large-123b", "train_4k", True, True))
+#: the devices l1 traces on, one subprocess each
+DRYRUN_DEVICES = ("cuda", "cpu")
+#: the card memory the tracing process may allocate (the bridge's small
+#: tensors; a traced step's tensors would take gigabytes)
+DRYRUN_CARD_BYTES = 1 << 20
+
+
+def dryrun_cells(device: str, out_dir: str) -> None:
+    """``--dryrun-cells``: every cell of :data:`DRYRUN_CELLS` traced on
+    ``device``'s fake tensors (:func:`repro_torch.launch.dryrun.run_cell`),
+    its artifact written into ``out_dir``, and ``summary.json``: per cell
+    its trace wall, counts, roofline and mix; the kernels' launches and
+    the card memory this process allocated over all of them."""
+    from repro_torch.launch import dryrun
+    # below the ranks of phases j and k, which run beside it: this
+    # process fills the host's idle time
+    os.nice(10)
+    reset_counts()
+    cells = []
+    for arch, shape, mp, sp in DRYRUN_CELLS:
+        r = dryrun.run_cell(arch, shape, multi_pod=mp, sequence_parallel=sp,
+                            out_dir=out_dir, device=device)
+        cells.append(dict({k: r[k] for k in (
+            "arch", "shape", "mesh", "chips", "trace_s", "counts",
+            "roofline")}, mix=r["memsys_bridge"]["mix"],
+            sequence_parallel=sp))
+    card = torch.cuda.max_memory_allocated() if device == "cuda" else 0
+    with open(Path(out_dir) / "summary.json", "w") as f:
+        json.dump(dict(cells=cells, launches=read_counts(),
+                       card_bytes=card), f)
+
+
+def phase_dryrun_start() -> dict:
+    """Start l1's subprocesses, one a device of :data:`DRYRUN_DEVICES`
+    (they run beside phases j and k)."""
+    import tempfile
+    started = {"t0": time.perf_counter(), "procs": {}}
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    for dev in DRYRUN_DEVICES:
+        out = tempfile.mkdtemp(prefix=f"repro_torch_dryrun_{dev}_")
+        logf = open(Path(out) / "log.txt", "w")
+        proc = subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--dryrun-cells",
+             dev, out], stdout=logf, stderr=subprocess.STDOUT, env=env)
+        started["procs"][dev] = (proc, out, logf)
+    log(f"dryrun: {len(DRYRUN_CELLS)} cells traced on "
+        f"{', '.join(DRYRUN_DEVICES)} in subprocesses")
+    return started
+
+
+def _close(got, want, path="") -> float:
+    """The largest |difference| of two decoded reports' numbers, raising
+    where their labels or structure differ."""
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            raise AssertionError(f"dryrun bridge {path}: keys differ")
+        return max([_close(got[k], want[k], f"{path}.{k}") for k in want],
+                   default=0.0)
+    if isinstance(want, (list, tuple)):
+        if len(got) != len(want):
+            raise AssertionError(f"dryrun bridge {path}: lengths differ")
+        return max([_close(g, w, f"{path}[{i}]")
+                    for i, (g, w) in enumerate(zip(got, want))], default=0.0)
+    if isinstance(want, (str, bool)) or want is None:
+        if got != want:
+            raise AssertionError(f"dryrun bridge {path}: {got!r} != {want!r}")
+        return 0.0
+    if float(got) == float(want):
+        return 0.0
+    return abs(float(got) - float(want))
+
+
+def phase_dryrun_finish(started: dict) -> dict:
+    """(l1) collect the subprocesses' cells: the card's counts equal to the
+    CPU's exactly, nothing launched; then the design space over the cells
+    on the card against the CPU, and the joint and serving frontiers on
+    the card with their kernels counted."""
+    import shutil
+    from repro_torch.core.space import joint_frontier
+    from repro_torch.roofline import analysis
+    summaries = {}
+    for dev, (proc, out, logf) in started["procs"].items():
+        rc = proc.wait(timeout=900)
+        logf.close()
+        text = (Path(out) / "log.txt").read_text()
+        if rc != 0:
+            raise AssertionError(f"dryrun on {dev}: exit {rc}\n{text[-4000:]}")
+        summaries[dev] = json.loads((Path(out) / "summary.json").read_text())
+        shutil.rmtree(out, ignore_errors=True)
+    wall = time.perf_counter() - started["t0"]
+    card, host = summaries["cuda"], summaries["cpu"]
+    launched = {k: v for s in summaries.values()
+                for k, v in s["launches"].items() if v}
+    if launched or card["card_bytes"] > DRYRUN_CARD_BYTES:
+        raise AssertionError(f"dryrun: launches {launched}, card bytes "
+                             f"{card['card_bytes']}")
+    cells, differ = [], []
+    for c, h in zip(card["cells"], host["cells"]):
+        if c["counts"] != h["counts"] or c["roofline"] != h["roofline"]:
+            differ.append((c["arch"], c["shape"], {
+                k: (v, h["counts"][k]) for k, v in c["counts"].items()
+                if v != h["counts"][k]}))
+        n, r = c["counts"], c["roofline"]
+        cells.append(dict(
+            arch=c["arch"], shape=c["shape"], mesh=c["mesh"],
+            sequence_parallel=c["sequence_parallel"],
+            trace_s=c["trace_s"], cpu_trace_s=h["trace_s"],
+            flops=n["flops"], read_bytes=n["read_bytes"],
+            write_bytes=n["write_bytes"],
+            collective_bytes=n["collective_bytes"], by_kind=n["by_kind"],
+            peak_live_bytes=n["peak_live_bytes"], ops=n["ops"],
+            kernel_calls=n["kernel_calls"], dominant=r["dominant"],
+            compute_s=r["compute_s"], memory_s=r["memory_s"],
+            collective_s=r["collective_s"], mix=c["mix"]))
+        log(f"dryrun l1: {c['arch']} × {c['shape']} × {c['mesh']}"
+            + (" sequence parallel" if c["sequence_parallel"] else "")
+            + f": trace {c['trace_s']:.1f} s on cuda ({h['trace_s']:.1f} s "
+            f"on cpu), {n['ops']} operators; FLOPs {n['flops']:.4e}, read "
+            f"{n['read_bytes']:.4e} B, write {n['write_bytes']:.4e} B, "
+            f"collectives {n['collective_bytes']:.4e} B "
+            f"{json.dumps(n['by_kind'])}, peak live "
+            f"{n['peak_live_bytes']:.4e} B; kernel operators "
+            f"{json.dumps(n['kernel_calls'])}; {r['dominant']}-bound "
+            f"(compute {1e3 * r['compute_s']:.2f} ms, memory "
+            f"{1e3 * r['memory_s']:.2f} ms, collective "
+            f"{1e3 * r['collective_s']:.2f} ms); mix {c['mix']}")
+    if differ:
+        raise AssertionError(f"dryrun: the card's counts differ from the "
+                             f"CPU's (card, cpu): {json.dumps(differ)}")
+    reports = {f"{c['arch']}__{c['shape']}__{c['mesh']}":
+               analysis.RooflineReport(**c["roofline"]) for c in card["cells"]}
+    t0 = time.perf_counter()
+    ds = analysis.bridge_design_space(reports, device="cuda")
+    bridge_s = time.perf_counter() - t0
+    diff = _close(json.loads(json.dumps(ds)), json.loads(json.dumps(
+        analysis.bridge_design_space(reports, device="cpu"))))
+    if diff > 1e-6:
+        raise AssertionError(f"dryrun bridge: card vs CPU differ by {diff}")
+    reset_counts()
+    t0 = time.perf_counter()
+    jf = joint_frontier(sim=ADAPTIVE_SIM, device="cuda")
+    joint_s, joint_launches = time.perf_counter() - t0, read_counts()
+    reset_counts()
+    t0 = time.perf_counter()
+    sf = DesignSpace.serving_frontier(device="cuda")
+    serving_s, serving_launches = time.perf_counter() - t0, read_counts()
+    joint_launches = {k: v for k, v in joint_launches.items() if v}
+    serving_launches = {k: v for k, v in serving_launches.items() if v}
+    if not joint_launches or not serving_launches or \
+            not jf["simulated_best"] or not sf["models"]:
+        raise AssertionError(f"dryrun frontiers: joint {joint_launches}, "
+                             f"serving {serving_launches}")
+    rec = dict(cells=cells, subprocess_wall_s=wall, bridge_s=bridge_s,
+               bridge_max_abs_diff=diff,
+               winners={n: w["best"] for n, w in ds["workloads"].items()},
+               joint_s=joint_s, joint_launches=joint_launches,
+               serving_s=serving_s, serving_launches=serving_launches)
+    log(f"dryrun l1: design space over {len(reports)} cells on the card "
+        f"in {bridge_s:.2f} s, equal to the CPU's (max |diff| {diff:.1e}); "
+        f"winners {json.dumps(rec['winners'])}; joint_frontier "
+        f"{joint_s:.1f} s, launches {json.dumps(joint_launches)}; "
+        f"serving_frontier {serving_s:.1f} s, launches "
+        f"{json.dumps(serving_launches)}; the traces' subprocesses "
+        f"{wall:.1f} s [{card_line()}]")
+    return rec
+
+
+def phase_sequence_parallel(ranks) -> dict:
+    """(l2) the sequence-parallel steps and prefill of phase j's world
+    (``ranks``: each rank's phase k records), held as k1 and k2 hold
+    theirs, logged beside k1's steps without sequence parallelism."""
+    steps = []
+    for i, case in enumerate(FAMILY_STEPS):
+        recs = [r["sp_steps"][i] for r in ranks]
+        plain = [r["steps"][i] for r in ranks]
+        r0 = recs[0]
+        bad = [r for r in recs if not r["placed_bitwise"]
+               or any(n != r["want_launches"] for n in r["launches"])]
+        if bad or r0["loss_share"] > 1.0 or r0["worst_share"] > 1.0 or \
+                not r0["finite"]:
+            raise AssertionError(f"sequence parallel step {case[:3]}: "
+                                 f"{json.dumps(r0)[:3000]}")
+        byt = lambda rs: [sum(r["traffic"][-1][k] for k in (
+            "all_reduce", "all_gather")) for r in rs]
+        rec = dict(
+            arch=case[0], layers=case[1], mesh=list(case[2]),
+            tokens_per_rank=r0["tokens_per_rank"], loss=r0["loss"],
+            one_card_loss=r0["one_card_loss"], loss_share=r0["loss_share"],
+            worst_leaf=r0["worst_leaf"], worst_share=r0["worst_share"],
+            residual_bytes_per_rank=[r["residual_bytes"] for r in recs],
+            plain_residual_bytes_per_rank=[r["residual_bytes"]
+                                           for r in plain],
+            residual_shape=r0["residual_shape"],
+            plain_residual_shape=plain[0]["residual_shape"],
+            collective_bytes_per_rank_step=byt(recs),
+            plain_collective_bytes_per_rank_step=byt(plain),
+            collective_calls_per_step=r0["traffic"][-1]["calls"],
+            plain_collective_calls_per_step=plain[0]["traffic"][-1]["calls"],
+            launches_per_rank_step=r0["launches"][0],
+            plain_launches_per_rank_step=plain[0]["launches"][0],
+            first_step_s=max(r["step_s"][0] for r in recs),
+            plain_first_step_s=max(r["step_s"][0] for r in plain),
+            step_gib_per_rank=[r["peak_gib"] - r["base_gib"] for r in recs],
+            plain_step_gib_per_rank=[r["peak_gib"] - r["base_gib"]
+                                     for r in plain])
+        steps.append(rec)
+        log(f"sequence parallel l2: {case[0]} {case[1]} layers on "
+            f"{case[2]}: loss {rec['loss']:.6f} ({rec['loss_share']:.3f} of "
+            f"the bound against one card); worst gradient leaf "
+            f"{rec['worst_leaf']} at {rec['worst_share']:.3f} of {GRAD_EPS} "
+            f"bf16 epsilons; residual stream {rec['residual_shape']} = "
+            f"{rec['residual_bytes_per_rank']} B a rank (without: "
+            f"{rec['plain_residual_shape']} = "
+            f"{rec['plain_residual_bytes_per_rank']} B); collectives "
+            f"{rec['collective_bytes_per_rank_step']} B in "
+            f"{rec['collective_calls_per_step']} calls a rank a step "
+            f"(without: {rec['plain_collective_bytes_per_rank_step']} B in "
+            f"{rec['plain_collective_calls_per_step']}); launches "
+            f"{rec['launches_per_rank_step']} (without: "
+            f"{rec['plain_launches_per_rank_step']}); first step "
+            f"{1e3 * rec['first_step_s']:.1f} ms (without: "
+            f"{1e3 * rec['plain_first_step_s']:.1f} ms); the step's peak "
+            f"above what the rank held before it "
+            f"{max(rec['step_gib_per_rank']):.2f} GiB a rank (without: "
+            f"{max(rec['plain_step_gib_per_rank']):.2f}) [{card_line()}]")
+    recs = [r["sp_serve"] for r in ranks]
+    r0 = recs[0]
+    bad = [r for r in recs if not r["replicated_bitwise"]
+           or r["prefill_launches"] != r["want_prefill_launches"]
+           or any(sum(n.values()) for n in r["decode_launches"])]
+    if bad or r0["logits_share"] > 1.0 or r0["caches_share"] > 1.0:
+        raise AssertionError(f"sequence parallel prefill: "
+                             f"{json.dumps(r0)[:3000]}")
+    plain = next(r for r in ranks[0]["serve"] if r["arch"] == SP_SERVE[0][0]
+                 and tuple(r["mesh"]) == SP_SERVE[1])
+    serve = dict(arch=r0["arch"], mesh=r0["mesh"],
+                 logits_share=r0["logits_share"],
+                 caches_share=r0["caches_share"],
+                 residual_bytes_per_rank=[r["prefill_residual_bytes"]
+                                          for r in recs],
+                 plain_residual_bytes=plain["prefill_residual_bytes"],
+                 prefill_bytes=r0["prefill_traffic"]["all_reduce"]
+                 + r0["prefill_traffic"]["all_gather"],
+                 plain_prefill_bytes=plain["prefill_traffic"]["all_reduce"]
+                 + plain["prefill_traffic"]["all_gather"],
+                 prefill_calls=r0["prefill_traffic"]["calls"],
+                 prefill_launches_per_rank=r0["prefill_launches"],
+                 prefill_s=max(r["prefill_s"] for r in recs))
+    log(f"sequence parallel l2: prefill and {FAMILY_DECODES} decodes of "
+        f"{serve['arch']} on {tuple(serve['mesh'])}: logits at "
+        f"{serve['logits_share']:.3f} and caches at "
+        f"{serve['caches_share']:.3f} of the serving bound; residual "
+        f"stream {serve['residual_bytes_per_rank']} B a rank (without: "
+        f"{serve['plain_residual_bytes']} B); prefill collectives "
+        f"{serve['prefill_bytes']} B in {serve['prefill_calls']} calls "
+        f"(without: {serve['plain_prefill_bytes']} B); launches "
+        f"{serve['prefill_launches_per_rank']} a rank [{card_line()}]")
+    return dict(steps=steps, serve=serve)
+
+
 def family_kernel_record(name: str, families: dict) -> dict:
     """A kernel's entry of phase k: its times at the rank-local shapes and
     its launches a rank in each sharded run."""
@@ -4414,10 +4798,21 @@ def main() -> None:
     ap.add_argument("--training", action="store_true",
                     help="only run the training phase")
     ap.add_argument("--mesh", action="store_true",
-                    help="only run the multi-device phases (j and k)")
+                    help="only run the multi-device phases (j, k and l2)")
+    ap.add_argument("--wrapper-ab", metavar="PARENT_ROOT",
+                    help="only time the LM kernels' wrappers of another "
+                         "tree and of this one in turns")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="only run the dry-run phase (l1)")
+    ap.add_argument("--dryrun-cells", nargs=2, metavar=("DEVICE", "DIR"),
+                    help="l1's subprocess: trace the cells on DEVICE "
+                         "into DIR")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
+    if args.dryrun_cells:
+        dryrun_cells(*args.dryrun_cells)
+        return
     card = card_line()
     log(f"card: {card}")
     if args.periodic_ab:
@@ -4431,6 +4826,18 @@ def main() -> None:
         records = phase_traces()
         print(card)
         print(json.dumps({"traces": records}))
+        return
+    if args.wrapper_ab:
+        _build.build(["flash_attention", "rglru_scan", "ssd_scan"])
+        turns = wrapper_ab(args.wrapper_ab)
+        print(card)
+        print(json.dumps({"wrapper_ab": turns}))
+        return
+    if args.dryrun:
+        _build.build(["flit_sim"])
+        records = phase_dryrun_finish(phase_dryrun_start())
+        print(card)
+        print(json.dumps({"dryrun": records}))
         return
     if args.streaming:
         _build.build(["flit_sim"])
@@ -4452,6 +4859,7 @@ def main() -> None:
         torch.backends.cudnn.allow_tf32 = False
         records, fam = phase_mesh()
         records["families"] = phase_families(fam)
+        records["sequence_parallel"] = phase_sequence_parallel(fam)
         print(card)
         print(json.dumps({"mesh": records}))
         return
@@ -4478,11 +4886,14 @@ def main() -> None:
     training = phase_training()
     # the division check keeps the card busy while the mesh phases' ranks,
     # sharing it, stage their collectives through host memory
+    dry = phase_dryrun_start()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         division = pool.submit(phase_division)
         mesh, fam = phase_mesh()
         division.result()
     families = phase_families(fam)
+    seq_parallel = phase_sequence_parallel(fam)
+    dryrun_rec = phase_dryrun_finish(dry)
 
     big = records["2^20 cells"]
     #: the main-path run each kernel's launch count is read from
@@ -4560,9 +4971,25 @@ def main() -> None:
                 "backend": mesh["backend"], "transport": mesh["transport"]}
             rec["mesh_families"] = family_kernel_record(rec["name"],
                                                         families)
+            rec["sequence_parallel_launches_per_rank_step"] = {
+                f"{st['arch']} {st['mesh']}":
+                    st["launches_per_rank_step"][rec["name"]]
+                for st in seq_parallel["steps"]}
+            rec["dryrun_operator_calls"] = {
+                f"{c['arch']} {c['shape']} {c['mesh']}":
+                    c["kernel_calls"].get(f"repro_torch::{rec['name']}", 0)
+                for c in dryrun_rec["cells"]}
+        else:
+            rec["dryrun_frontier_launches"] = {
+                "joint_frontier": dryrun_rec["joint_launches"].get(
+                    rec["name"], 0),
+                "serving_frontier": dryrun_rec["serving_launches"].get(
+                    rec["name"], 0)}
     log(f"streaming [{card}]: {json.dumps(stream)}")
     log(f"mesh [{card}]: {json.dumps(mesh)}")
     log(f"mesh families [{card}]: {json.dumps(families)}")
+    log(f"dryrun [{card}]: {json.dumps(dryrun_rec)}")
+    log(f"sequence parallel [{card}]: {json.dumps(seq_parallel)}")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

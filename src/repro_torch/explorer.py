@@ -1,9 +1,15 @@
-"""Memory-system explorer — port of the ``--bridge``, ``--sweep`` and
-``--serving`` modes of ``examples/memsys_explorer.py``.
+"""Memory-system explorer — port of ``examples/memsys_explorer.py``.
 
+    python -m repro_torch.explorer [CELL.json] [--out DIR]
     python -m repro_torch.explorer --bridge [--out DIR] [--device cpu]
     python -m repro_torch.explorer --sweep [--device cpu]
     python -m repro_torch.explorer --serving [--device cpu]
+
+The default mode prints one dry-run cell's roofline and its memory
+systems (:func:`explore`): the given artifact, or the first three cell
+artifacts of ``DIR`` (default ``experiments/torch_dryrun/``, where
+``python -m repro_torch.launch.dryrun`` writes them); files that are not
+cells (``design_space.json``, axes-first exports) are skipped.
 
 Sweep mode flit-simulates every protocol over a dense read-fraction x
 backlog grid with the adaptive engine (the ``symmetric_run`` and
@@ -11,7 +17,8 @@ backlog grid with the adaptive engine (the ``symmetric_run`` and
 read-fraction regime at backlog 64, and ranks the catalog over the same
 read-fraction axis.
 
-Bridge mode stacks every workload's traffic mix (the representative train / prefill /
+Bridge mode stacks every workload's traffic mix (the dry-run cells of
+``DIR`` where there are any, else the representative train / prefill /
 decode workloads below) as a ``workload_config`` axis on top of the dense
 mix grid and a shoreline axis, resolves the whole [configs x catalog x
 mixes x shorelines] space, then builds the joint analytic-vs-simulated
@@ -148,6 +155,71 @@ def sweep_mode(n_fracs: int = 41,
             "run_info": run_info, "sim_s": t_sim}
 
 
+def cell_artifacts(directory: Optional[os.PathLike] = None
+                   ) -> List[Tuple[str, Dict[str, Any]]]:
+    """The decoded per-cell dry-run artifacts of ``directory`` (default
+    :data:`DEFAULT_OUT`) as ``(path, dict)`` pairs in file-name order;
+    anything that is not a workload cell is skipped."""
+    from repro_torch.roofline.analysis import is_cell_artifact
+    d = Path(directory) if directory is not None else DEFAULT_OUT
+    out = []
+    for f in sorted(d.glob("*.json")):
+        try:
+            with open(f) as fh:
+                cell = json.load(fh)
+        except (OSError, ValueError):
+            continue
+        if is_cell_artifact(cell):
+            out.append((str(f), cell))
+    return out
+
+
+def explore(d: Dict[str, Any]) -> None:
+    """Print one cell's roofline and each memory system's bandwidth, energy
+    and memory term for its traffic mix (the reference's lines)."""
+    r = d["roofline"]
+    br = d["memsys_bridge"]
+    print(f"cell: {d['arch']} × {d['shape']} × {d['mesh']} "
+          f"({d['chips']} chips)")
+    print(f"  traffic mix (from HLO bytes): {br['mix']} "
+          f"(read fraction {br['read_fraction']:.2f})")
+    print(f"  roofline: compute {r['compute_s']*1e3:.1f} ms | "
+          f"memory {r['memory_s']*1e3:.1f} ms | "
+          f"collective {r['collective_s']*1e3:.1f} ms  "
+          f"-> {r['dominant']}-bound")
+    print(f"\n  memory systems for this workload "
+          f"(8 mm shoreline; HBM-baseline memory term "
+          f"{br['hbm_baseline_memory_s']*1e3:.1f} ms):")
+    rows = sorted(br["systems"].items(),
+                  key=lambda kv: kv[1]["memory_term_s"])
+    for key, s in rows:
+        print(f"    {key:32s} {s['bandwidth_gbs']:8.0f} GB/s  "
+              f"{s['pj_per_bit']:.3f} pJ/b  {s['latency_ns']:4.1f} ns  "
+              f"memory term {s['memory_term_s']*1e3:8.2f} ms  "
+              f"{s['interconnect_energy_j_per_step']:.2f} J/step")
+
+
+def explore_mode(cell: Optional[os.PathLike] = None,
+                 directory: Optional[os.PathLike] = None) -> int:
+    """The default mode: :func:`explore` of ``cell`` or of the first three
+    cell artifacts of ``directory``; returns how many it printed."""
+    if cell is not None:
+        with open(cell) as fh:
+            cells = [json.load(fh)]
+    else:
+        cells = [d for _, d in cell_artifacts(directory)[:3]]
+    if not cells:
+        print("no dry-run artifacts; run "
+              "`PYTHONPATH=src python -m repro_torch.launch.dryrun --all` "
+              "first (or try `--sweep` for the design-space sweep, which "
+              "needs no artifacts)")
+        return 0
+    for d in cells:
+        explore(d)
+        print()
+    return len(cells)
+
+
 def representative_reports() -> Dict[str, Any]:
     from repro_torch.roofline.analysis import RooflineReport
     return {
@@ -231,10 +303,17 @@ def bridge_mode(out_dir: Optional[os.PathLike] = None, *,
     from repro_torch.roofline.analysis import (
         DESIGN_SPACE_JSON, bridge_design_space,
     )
+    from repro_torch.roofline.analysis import RooflineReport
     dev = device_mod.resolve(device)
     say = print if verbose else (lambda *a, **k: None)
-    reports = representative_reports()
-    say("no dry-run artifacts; using representative workloads")
+    reports = {f"{d['arch']}__{d['shape']}__{d['mesh']}":
+               RooflineReport(**d["roofline"])
+               for _, d in cell_artifacts(out_dir)}
+    if reports:
+        say(f"{len(reports)} workload cells from dry-run artifacts")
+    else:
+        say("no dry-run artifacts; using representative workloads")
+        reports = representative_reports()
     t0 = time.perf_counter()
     ds = bridge_design_space(reports, n_fracs=n_fracs,
                              shorelines=shorelines, device=dev)
@@ -295,7 +374,10 @@ def bridge_mode(out_dir: Optional[os.PathLike] = None, *,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    mode = ap.add_mutually_exclusive_group(required=True)
+    ap.add_argument("cell", nargs="?", default=None,
+                    help="a dry-run cell artifact to explore (default "
+                         "mode)")
+    mode = ap.add_mutually_exclusive_group()
     mode.add_argument("--bridge", action="store_true",
                       help="workload -> design-space bridge")
     mode.add_argument("--sweep", action="store_true",
@@ -303,7 +385,8 @@ def main(argv=None) -> None:
     mode.add_argument("--serving", action="store_true",
                       help="serving-trace frontier per (model, QPS)")
     ap.add_argument("--out", default=None,
-                    help=f"bridge output directory (default {DEFAULT_OUT})")
+                    help=f"the dry-run artifacts' directory, where the "
+                         f"bridge writes its report (default {DEFAULT_OUT})")
     ap.add_argument("--device", default=None,
                     help="torch device (default cuda)")
     args = ap.parse_args(argv)
@@ -311,8 +394,10 @@ def main(argv=None) -> None:
         sweep_mode(device=args.device)
     elif args.serving:
         serving_mode(device=args.device)
-    else:
+    elif args.bridge:
         bridge_mode(args.out, device=args.device)
+    else:
+        explore_mode(args.cell, args.out)
 
 
 if __name__ == "__main__":

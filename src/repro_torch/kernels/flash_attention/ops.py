@@ -13,6 +13,13 @@ Gradients: where an operand needs one, the CUDA path runs through
 is the reference's (``repro/kernels/flash_attention/ops.py`` ``_bwd``):
 the VJP of ``attention_ref`` by recompute from the saved q, k and v.
 There is no backward kernel.
+
+A fake tensor (the dry run, :mod:`repro_torch.roofline.counts`) goes to
+the operator ``repro_torch::flash_attention_fwd``, whose fake version
+gives the output's shape and whose count is the two einsums of the
+reference's ``attend_chunked`` over every key chunk it computes; in
+training it runs under :class:`FlashAttention` as the kernel does.  Real
+tensors never reach the operator.
 """
 from __future__ import annotations
 
@@ -22,6 +29,7 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels.flash_attention import kernel as _k
+from repro_torch.roofline import counts
 from repro_torch.kernels.flash_attention.ref import (
     MAX_HEAD_DIM, attention_ref, check_operands,
 )
@@ -74,10 +82,42 @@ def _launch(q, k, v, *, causal: bool, window: int, q_offset: int):
     return out
 
 
+@torch.library.custom_op("repro_torch::flash_attention_fwd", mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            window: int, q_offset: int) -> torch.Tensor:
+    return flash_attention(q, k, v, causal, window, q_offset).clone()
+
+
+@_fwd_op.register_fake
+def _(q, k, v, causal, window, q_offset):
+    return torch.empty_like(q)
+
+
+def fwd_flops(q, k, v, *args) -> float:
+    """The two einsums of ``attend_chunked`` (scores, then the weighted
+    values) over every key position: 4 x B x H x Sq x Skv x hd."""
+    b, kh, g, sq, hd = q.shape
+    return 4.0 * b * kh * g * sq * k.shape[2] * hd
+
+
+counts.register_formula("repro_torch::flash_attention_fwd", fwd_flops)
+
+
+def _traced(q, k, v, *, causal: bool, window: int, q_offset: int):
+    return _fwd_op(q, k, v, causal, window, q_offset)
+
+
 def flash_attention(q, k, v, causal: bool = True, window: int = 0,
                     q_offset: int = 0):
     """q: [B, K, G, Sq, hd]; k, v: [B, K, Skv, hd] -> [B, K, G, Sq, hd]."""
     check_operands(q, k, v)
+    if counts.is_fake(q):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return FlashAttention.apply(q, k, v, causal, window, q_offset,
+                                        _traced)
+        return _traced(q, k, v, causal=causal, window=window,
+                       q_offset=q_offset)
     devs = {q.device, k.device, v.device}
     if len(devs) != 1:
         raise ValueError(f"flash_attention: operands on several devices "

@@ -15,6 +15,11 @@ recurrence run backward in time (:func:`lru_adjoint`), so the backward is
 one more launch of the same kernel on time-reversed operands plus two
 elementwise products: the gradient the reference takes by
 differentiating its ``lru_scan``, with no S-step loop on the card.
+
+A fake tensor (the dry run, :mod:`repro_torch.roofline.counts`) goes to
+the operator ``repro_torch::rglru_scan`` (no matmul: 0 FLOPs), forward and
+adjoint alike, so a traced step never unrolls the scan.  Real tensors
+never reach the operator.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 
 from repro_torch.kernels.rglru_scan import kernel as _k
 from repro_torch.kernels.rglru_scan.ref import check_operands, lru_ref
+from repro_torch.roofline import counts
 
 #: CUDA launches since the last :func:`reset_launches` (forward and
 #: backward scans alike)
@@ -77,9 +83,29 @@ def _launch(log_a, b):
     return out
 
 
+@torch.library.custom_op("repro_torch::rglru_scan", mutates_args=())
+def _scan_op(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    return lru(log_a, b).clone()
+
+
+@_scan_op.register_fake
+def _(log_a, b):
+    return torch.empty(b.shape, dtype=torch.float32, device=b.device)
+
+
+counts.register_formula("repro_torch::rglru_scan", lambda *args: 0.0)
+
+
 def lru(log_a, b):
     """log_a, b: [B, S, C] -> h [B, S, C] f32."""
     dev = b.device
+    if counts.is_fake(b):
+        check_operands(log_a, b)
+        log_a, b = log_a.float(), b.float()
+        if torch.is_grad_enabled() and (log_a.requires_grad
+                                        or b.requires_grad):
+            return LRUScan.apply(log_a, b, _scan_op)
+        return _scan_op(log_a, b)
     if log_a.device != dev:
         raise ValueError(f"rglru_scan: operands on several devices "
                          f"{log_a.device}, {dev}")

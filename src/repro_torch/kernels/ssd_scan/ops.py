@@ -16,15 +16,22 @@ Gradients: where an operand needs one, the CUDA path runs through
 VJP of ``ssd_chunked`` by recompute from the saved operands — the
 function the reference's training path differentiates.  There is no
 backward kernel.
+
+A fake tensor (the dry run, :mod:`repro_torch.roofline.counts`) goes to
+the operator ``repro_torch::ssd_scan``, whose count is the einsums of the
+reference's ``ssd_chunked`` at ``chunk``; in training it runs under
+:class:`SSDScan` as the kernel does.  Real tensors never reach the
+operator.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.kernels.ssd_scan import kernel as _k
 from repro_torch.kernels.ssd_scan.ref import check_operands
+from repro_torch.roofline import counts
 
 #: CUDA launches since the last :func:`reset_launches`
 launches: Dict[str, int] = {"ssd_scan": 0}
@@ -81,6 +88,38 @@ def _launch(x, dt, b, c, a_log, init_state):
     return out
 
 
+@torch.library.custom_op("repro_torch::ssd_scan", mutates_args=())
+def _scan_op(x: torch.Tensor, dt: torch.Tensor, b: torch.Tensor,
+             c: torch.Tensor, a_log: torch.Tensor,
+             init_state: Optional[torch.Tensor], chunk: int
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    y, fs = ssd(x, dt, b, c, a_log, chunk, init_state)
+    return y.clone(), fs.clone()
+
+
+@_scan_op.register_fake
+def _(x, dt, b, c, a_log, init_state, chunk):
+    bsz, _, h, p = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return torch.empty(x.shape, **f32), \
+        torch.empty((bsz, h, p, b.shape[-1]), **f32)
+
+
+def scan_flops(x, dt, b, c, a_log, init_state, chunk) -> float:
+    """The einsums of ``ssd_chunked`` (one B/C group) at chunk ``Q =
+    min(chunk, S)`` over ``ceil(S / Q)`` chunks: C B^T (Q x Q x N), its
+    product with x (Q x Q x P a head), the chunk states and their read
+    back (N x P x Q a head, each)."""
+    bsz, s, h, p = x.shape
+    n = b.shape[-1]
+    q = min(chunk, s)
+    nc = -(-s // q)
+    return 2.0 * bsz * nc * q * (q * n + h * q * p + 2 * h * n * p)
+
+
+counts.register_formula("repro_torch::ssd_scan", scan_flops)
+
+
 def ssd(x, dt, b, c, a_log, chunk: int = 128, init_state=None):
     """x: [B,S,H,P]; dt: [B,S,H]; b, c: [B,S,N]; a_log: [H]; init_state:
     [B,H,P,N] or None (zero) -> (y [B,S,H,P], final_state [B,H,P,N]) f32."""
@@ -95,6 +134,12 @@ def ssd(x, dt, b, c, a_log, chunk: int = 128, init_state=None):
                else t.float().contiguous() for t in ts)
     x, dt, b, c, a_log = ts[:5]
     init_state = ts[5] if len(ts) > 5 else None
+    if counts.is_fake(x):
+        traced = lambda *a: _scan_op(*a, chunk)
+        if torch.is_grad_enabled() and any(t.requires_grad for t in ts):
+            return SSDScan.apply(x, dt, b, c, a_log, init_state, chunk,
+                                 traced)
+        return traced(x, dt, b, c, a_log, init_state)
     if dev.type == "cpu":
         check_operands(x, dt, b, c, a_log, init_state)
         return chunked(x, dt, b, c, a_log, chunk, init_state)

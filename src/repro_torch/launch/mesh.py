@@ -15,6 +15,11 @@ Topology contract (the reference's):
     multi-pod  : (2, 16, 16) axes ("pod", "data", "model"); only the
                  gradient all-reduce crosses pods.
 
+:func:`loopback_mesh` is a live mesh of one process with no process
+group: one rank of a mesh of any size, whose collectives give their
+results' shapes (:mod:`repro_torch.models.sharding`); the dry run traces
+rank 0 of :func:`make_production_mesh` on it.
+
 :func:`spawn` runs a function on every rank of a new world on this host:
 NCCL with one rank per card where there are enough cards, gloo otherwise
 (the CPU, or ranks sharing cards; the collectives then stage CUDA tensors
@@ -133,6 +138,26 @@ def init_mesh(shape: Sequence[int], names: Sequence[str],
             groups[axes] = _axis_group(abstract, axes, rank)
     return Mesh(shape, names, rank=rank, device=dev,
                 backend=dist.get_backend(), groups=groups)
+
+
+def loopback_mesh(shape: Sequence[int], names: Sequence[str], rank: int = 0,
+                  device="cpu") -> Mesh:
+    """Rank ``rank`` of a mesh of ``shape`` in this process alone: its
+    groups hold no process group, only their sizes and this rank's index
+    in each (cheap at any size), and its backend is ``"loopback"``."""
+    abstract = Mesh(tuple(int(n) for n in shape), tuple(names))
+    c = abstract.coords(rank)
+    groups = {}
+    for k in range(1, len(abstract.axis_names) + 1):
+        for axes in itertools.combinations(abstract.axis_names, k):
+            size, index = 1, 0
+            for a in axes:
+                size *= abstract.shape[a]
+                index = index * abstract.shape[a] + c[a]
+            groups[axes] = AxisGroup(None, size, index)
+    return Mesh(abstract.devices_shape, abstract.axis_names, rank=rank,
+                device=torch.device(device), backend="loopback",
+                groups=groups)
 
 
 def _axis_group(mesh: Mesh, axes: Tuple[str, ...], rank: int) -> AxisGroup:

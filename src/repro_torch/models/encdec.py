@@ -27,7 +27,10 @@ start, each layer's inside the layer.  Over 'model' the encoder's and the
 decoder's self attention, the cross attention (queries from the decoder,
 K/V from the encoder output) and the MLPs run tensor parallel, as a
 decoder-only model's layers do; the self and cross caches hold every head
-and the rank's block of the positions or frames.
+and the rank's block of the positions or frames.  Under
+``ctx.sequence_parallel`` each stack's residual stream holds the rank's
+positions or frames between the regions, as a decoder-only model's does;
+the encoder output is gathered whole for the cross attention.
 """
 from __future__ import annotations
 
@@ -40,8 +43,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import sharding
 from repro_torch.models.layers import (
-    COMPUTE_DTYPE, cast, embed, mlp, mlp_schema, rmsnorm, rmsnorm_schema,
-    unembed, whole_logits,
+    COMPUTE_DTYPE, cast, embed, mlp, mlp_schema, region_norm,
+    rmsnorm_schema, unembed, whole_logits,
 )
 from repro_torch.models.schema import Leaf
 
@@ -84,14 +87,16 @@ def encdec_schema(cfg: ModelConfig):
     }
 
 
-def _enc_block(lp, x, cfg: ModelConfig, positions, ctx=None):
-    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+def _enc_block(lp, x, cfg: ModelConfig, positions, ctx=None,
+               sp: bool = False):
+    h = region_norm(lp["ln1"], x, cfg, ctx, sp)
     q, k, v = attn.qkv_project(lp["attn"], h, cfg, positions=positions,
                                ctx=ctx)
     o = attn.attend_prefill(q, k, v, causal=False, cfg=cfg, ctx=ctx)
-    x = x + attn.out_project(lp["attn"], o, cfg, ctx)
-    h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + mlp(lp["mlp"], h2, cfg, ctx)
+    x = x + sharding.leave_region(attn.out_project(lp["attn"], o, cfg, ctx),
+                                  ctx, sp)
+    h2 = region_norm(lp["ln2"], x, cfg, ctx, sp)
+    return x + sharding.leave_region(mlp(lp["mlp"], h2, cfg, ctx), ctx, sp)
 
 
 def _layer(fn, remat: bool, *args, specs=None, ctx=None):
@@ -110,27 +115,31 @@ def _layer(fn, remat: bool, *args, specs=None, ctx=None):
 
 def encode(params, frames, cfg: ModelConfig, remat: bool = False,
            specs=None, ctx=None):
-    """frames: [B, Se, d] precomputed frontend embeddings -> [B, Se, d]."""
+    """frames: [B, Se, d] precomputed frontend embeddings -> [B, Se, d]
+    (every frame on every 'model' rank; sequence parallel in between)."""
     x = torch.matmul(cast(frames), cast(params["frontend"]["adapter"]))
     positions = torch.arange(x.shape[1], device=x.device)[None, :]
+    sp = sharding.seq_split(x.shape[1], ctx)
+    x = sharding.leave_region(x, ctx, sp)
     blocks = params["encoder"]["blocks"]
     fn = functools.partial(_enc_block, cfg=cfg, positions=positions,
-                           ctx=ctx)
+                           ctx=ctx, sp=sp)
     for i in range(cfg.encoder_layers):
         name = f"layer_{i:02d}"
         x = _layer(fn, remat, blocks[name], x, ctx=ctx, specs=None
                    if specs is None else specs["encoder"]["blocks"][name])
-    return rmsnorm(params["encoder"]["final_norm"], x, cfg.norm_eps)
+    return region_norm(params["encoder"]["final_norm"], x, cfg, ctx, sp)
 
 
 def _dec_block(lp, x, enc, cfg: ModelConfig, *, mode: str, positions,
-               cache=None, ctx=None, cache_len=None):
+               cache=None, ctx=None, cache_len=None, sp: bool = False):
     """enc: encoder output [B, Se, d] (train, prefill) or None (decode,
     which reads the cross K/V from ``cache``).  Under 'model' ranks the
     self and cross caches are laid out as a decoder-only model's (every
-    head, the rank's block of the positions or frames)."""
+    head, the rank's block of the positions or frames).  ``sp``: ``x``
+    holds the rank's positions (sequence parallel)."""
     tp = sharding.active(ctx) and ctx.tp_size() > 1
-    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    h = region_norm(lp["ln1"], x, cfg, ctx, sp)
     if mode == "decode":
         if tp:
             q, k, v = attn.decode_qkv(lp["attn"], h, cfg, positions, ctx)
@@ -145,12 +154,13 @@ def _dec_block(lp, x, enc, cfg: ModelConfig, *, mode: str, positions,
                                    ctx=ctx)
         o = attn.attend_prefill(q, k, v, causal=True, cfg=cfg, ctx=ctx)
         self_cache = {n: attn.cache_positions(
-            attn.whole_kv(t, cfg, x.shape[1], ctx), ctx, cache_len,
+            attn.whole_kv(t, cfg, h.shape[1], ctx), ctx, cache_len,
             cache_len is not None) for n, t in (("k", k), ("v", v))} \
             if mode == "prefill" else None
-    x = x + attn.out_project(lp["attn"], o, cfg, ctx)
+    x = x + sharding.leave_region(attn.out_project(lp["attn"], o, cfg, ctx),
+                                  ctx, sp)
 
-    hx = rmsnorm(lp["lnx"], x, cfg.norm_eps)
+    hx = region_norm(lp["lnx"], x, cfg, ctx, sp)
     xp = lp["xattn"]
     if mode == "decode":
         cross = cache["cross"]
@@ -173,13 +183,14 @@ def _dec_block(lp, x, enc, cfg: ModelConfig, *, mode: str, positions,
                                       kv_x=enc)
         ox = attn.attend_prefill(qx, ck, cv, causal=False, cfg=cfg, ctx=ctx)
         cross = {n: attn.cache_positions(
-            attn.whole_kv(t, cfg, x.shape[1], ctx), ctx) for n, t in
+            attn.whole_kv(t, cfg, hx.shape[1], ctx), ctx) for n, t in
             (("k", ck), ("v", cv))} if mode == "prefill" else None
-    x = x + attn.out_project(xp, ox, cfg, ctx)
+    x = x + sharding.leave_region(attn.out_project(xp, ox, cfg, ctx), ctx,
+                                  sp)
 
-    h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + mlp(lp["mlp"], h2, cfg, ctx), {"self": self_cache,
-                                              "cross": cross}
+    h2 = region_norm(lp["ln2"], x, cfg, ctx, sp)
+    return x + sharding.leave_region(mlp(lp["mlp"], h2, cfg, ctx), ctx, sp), \
+        {"self": self_cache, "cross": cross}
 
 
 def forward_encdec(params, tokens, cfg: ModelConfig, *, mode: str,
@@ -211,16 +222,19 @@ def forward_encdec(params, tokens, cfg: ModelConfig, *, mode: str,
     elif mode != "decode":
         raise ValueError(f"mode {mode!r} not in ('train', 'prefill', "
                          f"'decode')")
+    sp = sharding.seq_split(x.shape[1], ctx)
+    x = sharding.leave_region(x, ctx, sp)
+    sharding.note_stream(x)
     blocks = params["decoder"]["blocks"]
     bspecs = None if specs is None else specs["decoder"]["blocks"]
     if mode == "train":
         fn = functools.partial(_dec_block, enc=enc, cfg=cfg, mode="train",
-                               positions=positions, ctx=ctx)
+                               positions=positions, ctx=ctx, sp=sp)
         for i in range(cfg.num_layers):
             name = f"layer_{i:02d}"
             x = _layer(fn, remat, blocks[name], x, ctx=ctx, specs=None
                        if bspecs is None else bspecs[name])[0]
-        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        x = region_norm(params["final_norm"], x, cfg, ctx, sp)
         return unembed(params["embedding"], x, cfg, ctx), torch.zeros(
             (), dtype=torch.float32, device=x.device)
     new_caches = {}
@@ -231,8 +245,8 @@ def forward_encdec(params, tokens, cfg: ModelConfig, *, mode: str,
         x, new_caches[name] = _dec_block(
             lp, x, enc, cfg, mode=mode, positions=positions,
             cache=caches[name] if mode == "decode" else None, ctx=ctx,
-            cache_len=cache_len)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+            cache_len=cache_len, sp=sp)
+    x = region_norm(params["final_norm"], x, cfg, ctx, sp)
     if mode == "prefill":
         x = x[:, -1:, :]
     return whole_logits(unembed(params["embedding"], x, cfg, ctx)[:, 0],

@@ -54,6 +54,17 @@ def embedding_schema(cfg: ModelConfig):
     return s
 
 
+def region_norm(params, x, cfg: ModelConfig, ctx=None, sp: bool = False):
+    """A block's norm on the residual stream ``x``, entering its
+    tensor-parallel region: under sequence parallelism (``sp``) on the
+    rank's positions, which are then gathered
+    (:func:`repro_torch.models.sharding.enter_region`), its scale's
+    gradient summed over 'model'."""
+    return sharding.enter_region(
+        rmsnorm(sharding.stream_params(params, ctx, sp), x, cfg.norm_eps),
+        ctx, sp)
+
+
 def vocab_parallel(cfg: ModelConfig, ctx) -> bool:
     """Whether the vocab dimension is split over 'model' (its spec's
     divisibility guard)."""

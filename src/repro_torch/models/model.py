@@ -31,7 +31,7 @@ from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import schema as schema_mod
 from repro_torch.models import sharding
 from repro_torch.models import transformer as tf_mod
-from repro_torch.models.layers import vocab_parallel
+from repro_torch.models.layers import COMPUTE_DTYPE, vocab_parallel
 
 def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4,
                   ctx=None, split_vocab: bool = False):
@@ -95,13 +95,92 @@ class Model:
         :meth:`init` or :func:`repro_torch.convert.model_params`)."""
         return sharding.shard_tree(params, self.param_specs(ctx), ctx)
 
+    def abstract_params(self, ctx=None, device="meta"):
+        """Empty tensors of every parameter leaf's shape and dtype on
+        ``device`` (``"meta"``: no memory; inside a ``FakeTensorMode``,
+        fake tensors), or of this rank's block under a mesh ``ctx`` (the
+        reference's ``abstract_params``, whose avals the dry run lowers
+        with)."""
+        specs = self.param_specs(ctx) if sharding.active(ctx) else None
+
+        def walk(node, spec):
+            if isinstance(node, schema_mod.Leaf):
+                shape = node.shape if spec is None else \
+                    sharding.local_shape(node.shape, spec, ctx)
+                return torch.empty(shape, dtype=node.dtype, device=device)
+            return {k: walk(node[k], None if spec is None else spec[k])
+                    for k in sorted(node)}
+        return walk(self.schema, specs)
+
     def check_mesh(self, ctx) -> None:
-        """Raise where the port cannot run on ``ctx``: every family runs
-        tensor parallel; ``sequence_parallel`` is not ported."""
-        if sharding.active(ctx) and ctx.sequence_parallel:
-            raise NotImplementedError(
-                "sequence_parallel: the port keeps activations replicated "
-                "over 'model' (ROADMAP.md queue 1 item 4)")
+        """The mesh check of every entry point: every family runs tensor
+        parallel on any ``ctx``, with or without ``sequence_parallel``, so
+        nothing is refused."""
+
+    # -- abstract inputs for the dry run --------------------------------------
+    def input_specs(self, shape, device="meta"):
+        """Empty tensors of the inputs of one step of ``shape`` (a
+        :class:`~repro_torch.configs.shapes.ShapeSpec`), the reference's
+        ``input_specs``: ``tokens`` and ``labels`` (train), with
+        ``patch_embeds`` (vision) or ``frames`` (encoder-decoder) in
+        bf16; decode: ``tokens``, ``positions`` [B, 1] and the whole
+        ``caches`` of ``seq_len`` positions."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        tok = lambda *sh: torch.empty(sh, dtype=torch.int32, device=device)
+        emb = lambda *sh: torch.empty(sh, dtype=COMPUTE_DTYPE,
+                                      device=device)
+        if shape.kind == "decode":
+            return {"tokens": tok(b, 1), "positions": tok(b, 1),
+                    "caches": self._global_caches(b, s, device)}
+        if cfg.is_encdec:
+            out = {"frames": emb(b, s, cfg.d_model), "tokens": tok(b, s)}
+        elif cfg.frontend == "vision":
+            p = cfg.frontend_tokens
+            out = {"tokens": tok(b, s - p),
+                   "patch_embeds": emb(b, p, cfg.d_model)}
+        else:
+            out = {"tokens": tok(b, s)}
+        if shape.kind == "train":
+            out["labels"] = tok(*out["tokens"].shape)
+        return out
+
+    def input_shardings(self, shape, ctx, specs=None):
+        """The spec of every leaf of :meth:`input_specs` (the reference's
+        ``input_shardings``): the batch over the data axes, the decode
+        caches as :meth:`cache_specs`."""
+        specs = self.input_specs(shape) if specs is None else specs
+
+        def one(name, t):
+            if name == "caches":
+                return sharding.map_tree(
+                    lambda c: sharding.cache_spec(tuple(c.shape), ctx), t)
+            axes = ("batch",) + (None,) * (t.ndim - 1)
+            if name in ("patch_embeds", "frames"):
+                axes = ("batch", None, "embed_act")
+            return ctx.spec(axes, tuple(t.shape))
+        return {k: one(k, v) for k, v in specs.items()}
+
+    def local_inputs(self, shape, ctx, device="meta"):
+        """This rank's blocks of :meth:`input_specs` (empty tensors): the
+        prefill and decode entry points take the global ``tokens``,
+        ``positions``, ``patch_embeds`` and ``frames`` and pick their
+        rows themselves, so only the train batch and the caches are
+        blocks."""
+        full = self.input_specs(shape)
+        specs = self.input_shardings(shape, ctx, full)
+
+        def local(t, spec):
+            return torch.empty(sharding.local_shape(tuple(t.shape), spec,
+                                                    ctx),
+                               dtype=t.dtype, device=device)
+        out = {}
+        for k, t in full.items():
+            keep_whole = shape.kind != "train" and k != "caches"
+            out[k] = sharding.map_tree(
+                lambda c: torch.empty(c.shape, dtype=c.dtype, device=device),
+                t) if keep_whole else sharding.map_specs(local, t, specs[k])
+        return out
 
     def cache_specs(self, ctx, batch: int, max_len: int):
         """The spec of every decode-cache leaf for ``batch`` sequences of
@@ -225,6 +304,20 @@ class Model:
                                                     ctx),
                                dtype=t.dtype, device=device)
         return sharding.map_specs(local, full, specs)
+
+
+def device_bytes(tree, specs, ctx) -> int:
+    """Per-rank bytes of a tree of (global) tensors under their ``specs``
+    (the reference dry run's ``_tree_device_bytes``: each leaf's bytes
+    floor-divided by the number of blocks its spec cuts it into)."""
+    total = [0]
+
+    def add(t, spec):
+        n = t.numel() * t.element_size()
+        parts = ctx.size_of(sharding.sharded_axes(spec)) if spec else 1
+        total[0] += n // parts
+    sharding.map_specs(add, tree, specs)
+    return total[0]
 
 
 def build(cfg: ModelConfig) -> Model:

@@ -114,7 +114,11 @@ def dispatch(top_e, num_experts: int, cap: int, is_local=None):
     if is_local is not None:
         flat_e = torch.where(is_local.reshape(-1), flat_e, num_experts)
     order = torch.sort(flat_e, stable=True)[1]
-    counts = torch.bincount(flat_e, minlength=num_experts + 1)
+    # a count of each id in [0, num_experts] (``bincount``'s, with a
+    # length fixed by the arguments, as fake tensors need)
+    counts = torch.zeros(num_experts + 1, dtype=flat_e.dtype,
+                         device=flat_e.device).scatter_add_(
+        0, flat_e, torch.ones_like(flat_e))
     starts = torch.cumsum(counts, dim=0) - counts
     pos_in_e = torch.empty_like(flat_e)
     pos_in_e[order] = torch.arange(flat_e.numel(), device=flat_e.device) \

@@ -28,10 +28,29 @@ the gradient, a reduce-scatter), the loss's sums are all-reduced
 (:func:`reduce_dp`), and :func:`reduce_grads` sums the rest of the
 gradients over the data axes a leaf is not sharded on.
 
+Under ``ctx.sequence_parallel`` the residual stream between the
+tensor-parallel regions holds this rank's ``S / tp`` positions where they
+divide (:func:`seq_split`, the reference's ``("batch", "seq",
+"embed_act")`` rule and its divisibility guard): a region is entered by
+gathering the positions (:func:`enter_region`) and left by keeping the
+rank's own of the summed output (:func:`leave_region`); the norms that
+run on the rank's positions take their scales through
+:func:`stream_params`.  The regions' own collectives are unchanged, so a
+region's exit is its all-reduce and a slice (the reference's
+reduce-scatter) and its entry's backward the all-reduce of ``enter_tp``
+and a slice; the stream's values equal those without sequence
+parallelism.  :data:`residual` records the stream's shape and bytes on
+this rank.
+
 Every collective is an ``all_reduce`` (sum or max) or a list
 ``all_gather``: the two that NCCL and gloo both take on every dtype here.
 Under gloo (the CPU, or ranks sharing a card) a CUDA tensor is staged
-through host memory.  :data:`traffic` counts the bytes.
+through host memory.  A mesh whose backend is ``"loopback"``
+(:func:`repro_torch.launch.mesh.loopback_mesh`) has one process and no
+process group: it traces one rank of a larger mesh, every collective
+returns its result's shape with this rank's values
+(:func:`loopback_collective`, an operator that fake tensors pass
+through).  :data:`traffic` counts the bytes.
 """
 from __future__ import annotations
 
@@ -233,6 +252,37 @@ def unshard(local: torch.Tensor, spec: Spec, ctx: ShardingCtx,
     return out if device is None else out.to(device)
 
 
+def gather_to(local: torch.Tensor, spec: Spec, ctx: ShardingCtx,
+              device=None) -> Optional[torch.Tensor]:
+    """The whole leaf from every rank's block on rank 0 alone (one
+    ``gather`` over the mesh, no graph; the other ranks get ``None``), on
+    ``device`` (default: the block's).  Under gloo the blocks travel
+    through host memory, and a leaf bound for the host stays there."""
+    out = local.detach()
+    rank0 = ctx.mesh.rank == 0
+    if not any(e is not None for e in spec):
+        return out if rank0 else None
+    g = ctx.mesh.group(ctx.mesh.axis_names)
+    src = _payload(out, ctx)
+    parts = [torch.empty_like(src) for _ in range(g.size)] if rank0 \
+        else None
+    dist.gather(src, parts, dst=0, group=g.group)
+    if not rank0:
+        return None
+    shape = tuple(n * (ctx.size_of(spec[i]) if i < len(spec)
+                       and spec[i] is not None else 1)
+                  for i, n in enumerate(out.shape))
+    whole = src.new_empty(shape)
+    for r, part in enumerate(parts):
+        whole[block(shape, spec, ctx, r)] = part
+    return whole.to(device if device is not None else local.device)
+
+
+def gather_tree_to(tree, specs, ctx: ShardingCtx, device=None):
+    """:func:`gather_to` of every leaf (``None`` leaves off rank 0)."""
+    return map_specs(lambda t, s: gather_to(t, s, ctx, device), tree, specs)
+
+
 def tree_specs(schema, ctx: ShardingCtx):
     """The spec of every leaf of a schema (nested dicts of ``Leaf``)."""
     if isinstance(schema, dict):
@@ -306,6 +356,31 @@ def transport(ctx: ShardingCtx, device: torch.device) -> str:
     return "device"
 
 
+@torch.library.custom_op("repro_torch::loopback_collective",
+                        mutates_args=())
+def loopback_collective(t: torch.Tensor, kind: str, parts: int,
+                        dim: int) -> torch.Tensor:
+    """A loopback mesh's collective: ``"all_reduce"`` gives ``t`` back,
+    ``"all_gather"`` ``parts`` copies of it along ``dim`` (the shapes of
+    the real ones; the values of a world whose ranks all hold ``t``)."""
+    if kind == "all_gather":
+        return torch.cat([t] * parts, dim=dim)
+    return t.clone()
+
+
+@loopback_collective.register_fake
+def _(t, kind, parts, dim):
+    if kind == "all_gather":
+        shape = list(t.shape)
+        shape[dim] *= parts
+        return t.new_empty(shape)
+    return torch.empty_like(t)
+
+
+def _loopback(ctx: ShardingCtx) -> bool:
+    return ctx.mesh.backend == "loopback"
+
+
 def _payload(t: torch.Tensor, ctx: ShardingCtx) -> torch.Tensor:
     """A contiguous copy of ``t`` that the backend's collectives take."""
     if transport(ctx, t.device) == "host-staged":
@@ -322,8 +397,11 @@ def all_reduce(t: torch.Tensor, ctx: ShardingCtx, axes,
     g = ctx.mesh.group(axes)
     if g.size == 1:
         return t.detach()
-    buf = _payload(t, ctx)
-    dist.all_reduce(buf, op=_OPS[op], group=g.group)
+    if _loopback(ctx):
+        buf = loopback_collective(t.detach(), "all_reduce", g.size, 0)
+    else:
+        buf = _payload(t, ctx)
+        dist.all_reduce(buf, op=_OPS[op], group=g.group)
     traffic["all_reduce"] += buf.numel() * buf.element_size()
     traffic["calls"] += 1
     return buf.to(t.device)
@@ -336,10 +414,14 @@ def all_gather(t: torch.Tensor, ctx: ShardingCtx, axes,
     g = ctx.mesh.group(axes)
     if g.size == 1:
         return t.detach()
-    src = _payload(t, ctx)
-    parts = [torch.empty_like(src) for _ in range(g.size)]
-    dist.all_gather(parts, src, group=g.group)
-    out = torch.cat(parts, dim=dim)
+    if _loopback(ctx):
+        out = loopback_collective(t.detach(), "all_gather", g.size,
+                                  dim % t.ndim)
+    else:
+        src = _payload(t, ctx)
+        parts = [torch.empty_like(src) for _ in range(g.size)]
+        dist.all_gather(parts, src, group=g.group)
+        out = torch.cat(parts, dim=dim)
     traffic["all_gather"] += out.numel() * out.element_size()
     traffic["calls"] += 1
     return out.to(t.device)
@@ -359,6 +441,8 @@ def sum_own(t: torch.Tensor, ctx: ShardingCtx, axes,
     g = ctx.mesh.group(axes)
     if g.size == 1:
         return t.detach()
+    if _loopback(ctx):
+        return _own(all_reduce(t, ctx, axes), ctx, axes, dim).contiguous()
     buf = _payload(t, ctx)
     dist.all_reduce(buf, group=g.group)
     traffic["all_reduce"] += buf.numel() * buf.element_size()
@@ -427,6 +511,58 @@ def gather_tp(x: torch.Tensor, ctx, dim: int,
     if not active(ctx) or ctx.tp_size() == 1:
         return x
     return _Gather.apply(x, ctx, ctx.tp_axis, dim, summed)
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, x, ctx, axes, dim):
+        fctx.args = (ctx, axes, dim)
+        return _own(x, ctx, axes, dim).contiguous()
+
+    @staticmethod
+    def backward(fctx, g):
+        return all_gather(g, *fctx.args), None, None, None
+
+
+#: the residual stream of the last forward on this rank: its shape and
+#: bytes (``S / tp`` positions under sequence parallelism)
+residual: Dict[str, Any] = {"shape": None, "bytes": 0}
+
+
+def seq_split(n: int, ctx) -> bool:
+    """Whether a residual stream of ``n`` positions holds ``n / tp`` of
+    them a rank: ``ctx.sequence_parallel`` and ``"seq"``'s spec
+    (:meth:`ShardingCtx.spec`'s divisibility guard; decode's one position
+    and a ragged length stay replicated)."""
+    return active(ctx) and ctx.sequence_parallel and tp_split(n, ctx, "seq")
+
+
+def enter_region(h: torch.Tensor, ctx, sp: bool) -> torch.Tensor:
+    """A block's normed input entering its tensor-parallel region: where
+    the stream is sequence parallel (``sp``), the 'model' ranks' positions
+    gathered along dim 1; backward, the rank's positions of the region's
+    gradient, which ``enter_tp`` inside the region made whole."""
+    return gather_tp(h, ctx, 1) if sp else h
+
+
+def leave_region(o: torch.Tensor, ctx, sp: bool) -> torch.Tensor:
+    """A replicated ``[B, S, ...]`` value (a region's output, the
+    embeddings) as the residual stream holds it: where ``sp``, the rank's
+    own ``S / tp`` positions; backward, the ranks' gradients gathered (the
+    replicated gradient the value's producer takes)."""
+    return _Scatter.apply(o, ctx, ctx.tp_axis, 1) if sp else o
+
+
+def stream_params(p, ctx, sp: bool):
+    """Replicated parameters applied to a sequence-parallel stream's own
+    positions (the norms' scales, ``sp``): each rank's positions give part
+    of their gradient, summed over 'model' backward (:func:`enter_tp`)."""
+    return map_tree(lambda t: enter_tp(t, ctx), p) if sp else p
+
+
+def note_stream(x: torch.Tensor) -> None:
+    residual["shape"] = tuple(x.shape)
+    residual["bytes"] = x.numel() * x.element_size()
 
 
 def tp_split(n: int, ctx, logical: str = "seq_kv") -> bool:

@@ -211,8 +211,8 @@ def ssm_block(params, x, cfg: ModelConfig, state: Tuple = None,
 
     conv_state = state[0] if state is not None else None
     if tp:
-        sel = torch.cat([torch.arange(c0, c1), torch.arange(di, d_conv)]
-                        ).to(x.device)
+        sel = torch.cat([torch.arange(c0, c1, device=x.device),
+                         torch.arange(di, d_conv, device=x.device)])
         pad = xbc.new_zeros((bsz, cfg.conv_width - 1, d_conv)) \
             if conv_state is None else conv_state.to(xbc.dtype)
         new_conv = torch.cat([pad, xbc], dim=1)[:, -(cfg.conv_width - 1):]

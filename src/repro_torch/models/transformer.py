@@ -33,7 +33,11 @@ tensor parallel over 'model' (``attention``, ``layers``, ``moe``,
 ``rglru``, ``ssm``).  Prefill and decode return every vocab column; their
 caches are the rank's blocks (``Model.cache_specs``): a KV cache's
 positions split over 'model' and decoded context parallel
-(``attention.decode_attend``).
+(``attention.decode_attend``).  Under ``ctx.sequence_parallel`` the
+residual stream between the layers' tensor-parallel regions holds the
+rank's ``S / tp`` positions where they divide (``sharding.seq_split``):
+each block gathers the positions after its norm and keeps its own of the
+region's output (``sharding.enter_region``, ``sharding.leave_region``).
 """
 from __future__ import annotations
 
@@ -50,8 +54,8 @@ from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import sharding
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
-    COMPUTE_DTYPE, cast, embed, embedding_schema, mlp, mlp_schema, rmsnorm,
-    rmsnorm_schema, unembed, whole_logits,
+    COMPUTE_DTYPE, cast, embed, embedding_schema, mlp, mlp_schema,
+    region_norm, rmsnorm_schema, unembed, whole_logits,
 )
 from repro_torch.models.schema import Leaf
 
@@ -116,12 +120,14 @@ def _ring_gather(kv, window: int):
 
 
 def attn_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
-               cache=None, routing=None, ctx=None, cache_len=None):
+               cache=None, routing=None, ctx=None, cache_len=None,
+               sp: bool = False):
     """-> (x, new cache (None in train mode), moe aux loss or None).
     Under a mesh a prefill's cache holds every KV head and, where they
     divide over 'model', the rank's block of the positions (padded first
-    to ``cache_len``); decode reads and writes that block."""
-    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+    to ``cache_len``); decode reads and writes that block.  ``sp``: ``x``
+    holds the rank's positions (sequence parallel)."""
+    h = region_norm(lp["ln1"], x, cfg, ctx, sp)
     window = cfg.window if cfg.attention == "local" else 0
     tp = sharding.active(ctx) and ctx.tp_size() > 1
 
@@ -140,7 +146,7 @@ def attn_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
                                 cfg=cfg, ctx=ctx)
         new_cache = None
         if mode == "prefill":
-            k, v = (attn.whole_kv(t, cfg, x.shape[1], ctx) for t in (k, v))
+            k, v = (attn.whole_kv(t, cfg, h.shape[1], ctx) for t in (k, v))
             if window > 0:       # a ring: never padded, always decoded
                 k, v = _ring_gather(k, window), _ring_gather(v, window)
                 cache_len, decodable = None, True
@@ -150,32 +156,35 @@ def attn_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
                 "k": attn.cache_positions(k, ctx, cache_len, decodable),
                 "v": attn.cache_positions(v, ctx, cache_len, decodable)}
 
-    x = x + attn.out_project(lp["attn"], o, cfg, ctx)
-    h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
+    x = x + sharding.leave_region(attn.out_project(lp["attn"], o, cfg, ctx),
+                                  ctx, sp)
+    h2 = region_norm(lp["ln2"], x, cfg, ctx, sp)
     if "moe" in lp:
         m, aux = moe_mod.moe_block(lp["moe"], h2, cfg, routing, ctx)
-        return x + m, new_cache, aux
-    return x + mlp(lp["mlp"], h2, cfg, ctx), new_cache, None
+        return x + sharding.leave_region(m, ctx, sp), new_cache, aux
+    out = sharding.leave_region(mlp(lp["mlp"], h2, cfg, ctx), ctx, sp)
+    return x + out, new_cache, None
 
 
 def rec_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
-              cache=None, ctx=None, cache_len=None):
-    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+              cache=None, ctx=None, cache_len=None, sp: bool = False):
+    h = region_norm(lp["ln1"], x, cfg, ctx, sp)
     o, new_state = rglru_mod.rglru_block(lp["rec"], h, cfg, state=cache,
                                          decode=(mode == "decode"), ctx=ctx)
     if mode != "train":
         new_state = rglru_mod.whole_state(new_state, cfg, ctx)
-    x = x + o
-    h2 = rmsnorm(lp["ln2"], x, cfg.norm_eps)
-    return x + mlp(lp["mlp"], h2, cfg, ctx), new_state, None
+    x = x + sharding.leave_region(o, ctx, sp)
+    h2 = region_norm(lp["ln2"], x, cfg, ctx, sp)
+    out = sharding.leave_region(mlp(lp["mlp"], h2, cfg, ctx), ctx, sp)
+    return x + out, new_state, None
 
 
 def ssm_block_apply(lp, x, cfg: ModelConfig, *, mode: str, positions,
-                    cache=None, ctx=None, cache_len=None):
-    h = rmsnorm(lp["ln1"], x, cfg.norm_eps)
+                    cache=None, ctx=None, cache_len=None, sp: bool = False):
+    h = region_norm(lp["ln1"], x, cfg, ctx, sp)
     o, new_state = ssm_mod.ssm_block(lp["ssm"], h, cfg, state=cache,
                                      decode=(mode == "decode"), ctx=ctx)
-    return x + o, new_state, None
+    return x + sharding.leave_region(o, ctx, sp), new_state, None
 
 
 _BLOCK_FNS = {"attn": attn_block, "moe": attn_block, "rec": rec_block,
@@ -231,6 +240,9 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, caches=None,
     s = x.shape[1]
     if positions is None:
         positions = torch.arange(s, device=x.device)[None, :]
+    sp = sharding.seq_split(s, ctx)
+    x = sharding.leave_region(x, ctx, sp)
+    sharding.note_stream(x)
 
     if mode == "train":
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -239,7 +251,7 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, caches=None,
             kw = {"routing": {}} if kind == "moe" else {}
             fn = functools.partial(
                 _BLOCK_FNS[kind], cfg=cfg, mode="train", positions=positions,
-                ctx=ctx, **kw)
+                ctx=ctx, sp=sp, **kw)
             if specs is not None:
                 fn = _sharded_layer(fn, specs["blocks"][name], ctx)
             lp = params["blocks"][name]
@@ -249,7 +261,7 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, caches=None,
                 x, _, a = fn(lp, x)
             if a is not None:
                 aux = aux + a
-        x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+        x = region_norm(params["final_norm"], x, cfg, ctx, sp)
         return unembed(params["embedding"], x, cfg, ctx), aux
 
     new_caches = {}
@@ -261,9 +273,9 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, caches=None,
         x, new_caches[name], _ = _BLOCK_FNS[kind](
             lp, x, cfg, mode=mode, positions=positions,
             cache=caches[name] if mode == "decode" else None, ctx=ctx,
-            cache_len=cache_len)
+            cache_len=cache_len, sp=sp)
 
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    x = region_norm(params["final_norm"], x, cfg, ctx, sp)
     if mode == "prefill":
         x = x[:, -1:, :]
     return whole_logits(unembed(params["embedding"], x, cfg, ctx)[:, 0],

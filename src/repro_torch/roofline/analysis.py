@@ -1,16 +1,53 @@
-"""Workload -> design-space bridge — port of the bridge half of
-:mod:`repro.roofline.analysis` (:class:`RooflineReport`,
-:func:`bridge_design_space`).  The HLO parsing half waits for a later
-slice."""
+"""Roofline analysis of a dry-run cell and the workload -> design-space
+bridge (port of :mod:`repro.roofline.analysis`).
+
+Three terms per (arch x shape x mesh), per chip, in seconds:
+
+    compute    = FLOPs / peak_FLOP/s
+    memory     = (read + write bytes) / HBM_bw
+    collective = collective_bytes / link_bw
+
+The reference takes the counts from the compiled HLO (a loop-weighted
+parse, and XLA's output fraction to split reads from writes); the port
+takes them from :mod:`repro_torch.roofline.counts`, which counts rank 0's
+program under fake tensors with the same FLOP and fusion rules and counts
+reads and writes apart.  The bridge: byte counts -> xRyW traffic mix ->
+each UCIe-Memory approach's delivered bandwidth and interconnect energy
+for this workload.
+"""
 from __future__ import annotations
 
 import dataclasses
 from typing import Any, Dict
 
 import numpy as np
+import torch
 
-#: filename of the aggregate design-space report (bridge + frontiers)
+from repro_torch.roofline.hw import H100, ChipSpec
+
+#: filename of the aggregate design-space report (bridge + frontiers),
+#: written next to the per-cell dry-run artifacts; every per-cell glob
+#: skips it
 DESIGN_SPACE_JSON = "design_space.json"
+
+#: top-level keys every per-cell dry-run artifact carries
+CELL_ARTIFACT_KEYS = ("arch", "shape", "mesh", "roofline")
+
+#: design-space dimensions per-cell consumers do not understand: an
+#: artifact declaring them (in an ``axes`` list or mapping) is an aggregate
+#: export of the axes-first API, not a workload cell
+NON_CELL_AXES = ("phy", "catalog_param")
+
+
+def is_cell_artifact(d) -> bool:
+    """True when a decoded dry-run JSON is a per-cell workload artifact
+    (not the ``design_space.json`` report or an axes-first export)."""
+    if not isinstance(d, dict):
+        return False
+    if not all(k in d for k in CELL_ARTIFACT_KEYS):
+        return False
+    axes = d.get("axes") or ()
+    return not any(a in axes for a in NON_CELL_AXES)
 
 
 @dataclasses.dataclass
@@ -37,6 +74,38 @@ class RooflineReport:
         return dataclasses.asdict(self)
 
 
+def analyze(arch: str, shape_name: str, mesh_desc: str, chips: int,
+            counts: Dict[str, float], model_flops: float,
+            chip: ChipSpec = H100, peak_memory_bytes: float = 0.0,
+            notes: str = "") -> RooflineReport:
+    """The roofline of one cell from per-chip ``counts``: ``flops``,
+    ``read_bytes``, ``write_bytes`` and ``collective_bytes`` (the
+    reference's :func:`analyze` with the counts in place of its HLO)."""
+    flops = float(counts["flops"])
+    read_bytes = float(counts["read_bytes"])
+    out_bytes = float(counts["write_bytes"])
+    bytes_total = read_bytes + out_bytes
+    coll_bytes = float(counts["collective_bytes"])
+
+    compute_s = flops / chip.peak_bf16_flops
+    memory_s = bytes_total / chip.hbm_bandwidth
+    collective_s = coll_bytes / chip.ici_link_bandwidth
+    terms = {"compute": compute_s, "memory": memory_s,
+             "collective": collective_s}
+    dominant = max(terms, key=terms.get)
+    global_flops = flops * chips
+    return RooflineReport(
+        arch=arch, shape=shape_name, mesh=mesh_desc, chips=chips,
+        hlo_flops_per_chip=flops, hlo_bytes_per_chip=bytes_total,
+        collective_bytes_per_chip=coll_bytes,
+        compute_s=compute_s, memory_s=memory_s, collective_s=collective_s,
+        dominant=dominant, model_flops=model_flops,
+        useful_flops_ratio=(model_flops / global_flops
+                            if global_flops else 0.0),
+        read_bytes_per_chip=read_bytes, write_bytes_per_chip=out_bytes,
+        peak_memory_bytes=peak_memory_bytes, notes=notes)
+
+
 def _systems_dict(report: RooflineReport, keys, bw_gbs, pj,
                   latency_ns) -> Dict[str, Any]:
     """Per-system bridge metrics from stacked ``[S]`` catalog columns."""
@@ -54,6 +123,33 @@ def _systems_dict(report: RooflineReport, keys, bw_gbs, pj,
             "latency_ns": float(latency_ns[i]),
         }
     return out
+
+
+def memsys_bridge(report: RooflineReport, shoreline_mm: float = 8.0,
+                  chip: ChipSpec = H100, device=None) -> Dict[str, Any]:
+    """The paper bridge: this workload's traffic mix under every memory
+    system of the catalog -> memory-term seconds and interconnect energy,
+    the whole catalog in one stacked program on ``device`` (default
+    ``"cuda"``)."""
+    from repro_torch import device as device_mod
+    from repro_torch.core.memsys import default_catalog_items, \
+        run_catalog_program
+    from repro_torch.core.traffic import TrafficMix
+    dev = device_mod.resolve(device)
+    mix = TrafficMix.from_bytes(report.read_bytes_per_chip,
+                                report.write_bytes_per_chip)
+    items = default_catalog_items()
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=dev)
+    bw, pjb, _, _ = run_catalog_program(items, f32(mix.x), f32(mix.y),
+                                        f32(shoreline_mm))
+    lat = [ms.latency_ns for _, ms in items]
+    return {"mix": mix.name,
+            "read_fraction": mix.read_fraction,
+            "hbm_baseline_memory_s": report.memory_s,
+            "systems": _systems_dict(
+                report, [k for k, _ in items], bw.cpu().numpy(),
+                pjb.cpu().numpy(),
+                torch.tensor(lat, dtype=torch.float32).numpy())}
 
 
 def bridge_design_space(reports: Dict[str, RooflineReport],

@@ -170,13 +170,16 @@ def test_blocks_tile_the_leaf(rank):
     "seamless-m4t-large-v2"])
 def test_tensor_parallel_families(arch):
     """Every family runs tensor parallel: ``check_mesh`` passes under
-    ``(2, 2)`` and ``(4, 1)``; ``sequence_parallel`` still raises."""
+    ``(2, 2)`` and ``(4, 1)``, and with ``sequence_parallel`` too, whose
+    residual stream splits where the positions divide over 'model'."""
     model = build(get(arch).reduced())
     model.check_mesh(sharding.from_mesh(make_test_mesh(2, 2)))
     model.check_mesh(sharding.from_mesh(make_test_mesh(4, 1)))
-    with pytest.raises(NotImplementedError, match="sequence_parallel"):
-        model.check_mesh(sharding.from_mesh(make_test_mesh(2, 1),
-                                            sequence_parallel=True))
+    sp = sharding.from_mesh(make_test_mesh(1, 2), sequence_parallel=True)
+    model.check_mesh(sp)
+    assert sharding.seq_split(16, sp) and not sharding.seq_split(1, sp)
+    assert not sharding.seq_split(16, sharding.from_mesh(
+        make_test_mesh(1, 2)))
 
 
 def test_leaf_specs_cover_every_logical_axis():
