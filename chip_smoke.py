@@ -7,6 +7,7 @@
     python3 chip_smoke.py --streaming
     python3 chip_smoke.py --training
     python3 chip_smoke.py --mesh
+    python3 chip_smoke.py --stream-sharded
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``).  Phases, each fatal
 on failure:
@@ -213,6 +214,20 @@ on failure:
       decodes under (1, 4) with it on at the serving bound; per rank the
       residual stream's bytes, collective bytes and calls and the kernels'
       launches logged beside k1's steps without it;
+   m. the sharded stream (``symmetric_trace``, ``asymmetric_trace``), in
+      phase j's world after k: each of the four ranks streams f''s
+      ``joint_1e7`` space with ``StreamConfig(devices=4)`` on its card
+      (slot r of every 16384-cell window: 157 dispatches a rank, 9,788
+      padded cells, 16,384 joint cells a chunk), the launch counts set to
+      0 just before it and read just after: one launch of each trace
+      kernel a dispatch of the rank and no eager per-cycle core; its
+      winners, win counts and bests (one end-of-stream all-reduce and
+      all-gather) bitwise equal on every rank to f''s one-card stream
+      (compared as digests: a SHA-256 of the winner codes, the counts,
+      the bests' hex); f''s constrained catalog stream at ``devices=4``
+      bitwise against the rank's one-card stream of it, ``(none)``
+      included; each rank's wall, marshal, overlap, dispatches, peak
+      GiB, the reduction's wall and bytes and its transport logged;
 
    The RG-LRU scan is held bitwise against its plain version in phase 3
    (it keeps the plain version's order) at nine cases (the serving
@@ -258,7 +273,10 @@ and prints no result line.
 
 ``--training`` runs only phases 1-2 and the training phase (i), and prints
 one ``{"training": {...}}`` line last; ``--mesh`` only phases 1-2 and the
-multi-device phases (j and k), and one ``{"mesh": {...}}`` line last.
+multi-device phases (j, k, l2 and m), and one ``{"mesh": {...}}`` line
+last; ``--stream-sharded`` only phases 1-2 and m, in a world of four
+ranks of its own (f''s one-card stream run first in this process), and
+one ``{"stream_sharded": {...}}`` line last.
 ``--periodic-ab`` runs only
 phases 1-2 and the periodic detectors of
 phase 3, for other ``flit_sim.cu`` files (a parent commit's, unpacked with
@@ -1533,12 +1551,223 @@ def phase_streaming() -> dict:
         f"{runs[2][0]['peak_gib']:.4f} GiB)")
     return {"joint_1e7": {"runs": runs, "materialized_wall_s": mat_wall,
                           "materialized_peak_gib": mat_peak,
+                          "digest": stream_digest(sr),
                           "n_cells": sr.n_cells,
                           "n_stream_cells": sr.n_stream_cells,
                           "dispatches": sr.n_dispatches,
                           "peak_cells_per_chunk": sr.peak_cells_per_chunk,
                           "win_counts": sr.win_counts},
             **phase_perturbation()}
+
+
+#: the constrained analytic stream of phases f' and m: its constraints and
+#: chunk (its space: :func:`catalog_stream_space`)
+CAT_STREAM_CONS = dict(packaging="UCIe-A", max_power_w=40.0)
+CAT_STREAM_CHUNK = 64
+#: the digest keys of the dispatch plan, which differ with the ranks
+PLAN_KEYS = ("n_dispatches", "chunk_cells", "devices",
+             "peak_cells_per_chunk")
+
+
+def catalog_stream_space(device) -> DesignSpace:
+    """101 read fractions x 4 shorelines: 404 analytic cells."""
+    return DesignSpace([axis("read_fraction",
+                             list(np.linspace(0.0, 1.0, 101))),
+                        axis("shoreline_mm", [2.0, 4.0, 8.0, 16.0])],
+                       device=device)
+
+
+def stream_digest(sr) -> dict:
+    """Everything a ``StreamResult`` holds, small: the winners' dims, a
+    SHA-256 of their coords and one of their label codes, the win counts
+    and each best as ``float.hex`` (NaN too), and the dispatch plan."""
+    import hashlib
+    vals = np.asarray(sr.winners.values, dtype=object)
+    codes = np.full(vals.shape, -1, np.int8)
+    for i, lab in enumerate(tuple(sr.labels) + ("(none)",)):
+        codes[vals == lab] = i
+    return {"dims": list(sr.winners.dims),
+            "coords_sha256": hashlib.sha256(
+                repr(sr.winners.coords).encode()).hexdigest(),
+            "codes_sha256": hashlib.sha256(codes.tobytes()).hexdigest(),
+            "unlabelled": int(np.sum(codes < 0)),
+            "win_counts": dict(sr.win_counts),
+            "best_by_label": {k: float(v).hex()
+                              for k, v in sr.best_by_label.items()},
+            "n_cells": sr.n_cells, "n_dispatches": sr.n_dispatches,
+            "chunk_cells": sr.chunk_cells, "devices": sr.devices,
+            "peak_cells_per_chunk": sr.peak_cells_per_chunk}
+
+
+def one_card_stream() -> dict:
+    """Phase f''s one-card ``joint_1e7`` stream where f' does not run in
+    this process: its digest and wall, after a warm-up."""
+    log("stream sharded: joint_1e7 on one card (phase f' did not run)")
+    streamed(joint_space("cuda"), 2)
+    sr, wall, _, _, info, _ = streamed(joint_space("cuda"), 2)
+    log(f"stream sharded: one card: {sr.n_dispatches} dispatches, "
+        f"{wall:.3f} s wall (runner {info['elapsed_s']:.3f} s, marshal "
+        f"{info['marshal_s']:.3f} s)")
+    return {"digest": stream_digest(sr), "wall_s": wall}
+
+
+def _differs(got: dict, want: dict) -> list:
+    """The keys of two digests that differ, the plan's left out."""
+    return [k for k in want if k not in PLAN_KEYS and got[k] != want[k]]
+
+
+def _stream_sharded_work(rank: int, world: int, out_dir: str) -> dict:
+    """Phase m on one rank of a world of ``world``: the ``joint_1e7``
+    space streamed with ``StreamConfig(devices=world)`` on this rank's
+    card with the launch counts set to 0 just before it and read just
+    after (one ``symmetric_trace`` and one ``asymmetric_trace`` launch a
+    dispatch of this rank, no eager per-cycle core), its digest against
+    phase f''s one-card digest; then phase f''s constrained catalog
+    stream sharded against this rank's one-card stream of it.  Raises on
+    any difference."""
+    from repro_torch.launch import mesh as mesh_mod
+    dev = mesh_mod.default_device()
+    torch.distributed.barrier()
+    t_phase = time.perf_counter()
+    # warm-up: the flit library loaded and the world's collectives used
+    DesignSpace([axis("protocol_param", [{}, {"g_slots": 2.0}]),
+                 axis("phy", list(JOINT_PHYS)), axis("backlog", [2.0]),
+                 axis("read_fraction", [0.0, 0.5, 1.0])],
+                n_flits=JOINT_CYCLES, n_accesses=JOINT_CYCLES,
+                device=dev).evaluate(
+        metrics=("sim_bandwidth_gbs",),
+        stream=StreamConfig(chunk_cells=2, devices=world))
+    space = joint_space(dev)
+    eager: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.distributed.barrier()
+    reset_counts()
+    t0 = time.perf_counter()
+    with eager_loop_calls(eager):
+        sr = space.evaluate(metrics=("sim_bandwidth_gbs",),
+                            stream=StreamConfig(chunk_cells=JOINT_CHUNK,
+                                                devices=world))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: n for k, n in read_counts().items() if n}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    info = dict(flitsim.last_run_info()["stream.sim"])
+    n = sr.n_stream_cells
+    chunk = min(JOINT_CHUNK, -(-n // world))
+    n_disp = -(-n // (world * chunk))
+    want = {"symmetric_trace": n_disp, "asymmetric_trace": n_disp}
+    t1 = time.perf_counter()
+    digest = stream_digest(sr)
+    digest_s = time.perf_counter() - t1
+    with open(Path(out_dir) / "one_card.json") as f:
+        one = json.load(f)["digest"]
+    bad = _differs(digest, one)
+    if bad or counts != want or any(eager.values()) or \
+            (sr.n_dispatches, sr.chunk_cells, sr.devices,
+             sr.peak_cells_per_chunk, info["pad_cells"]) != \
+            (n_disp, chunk, world, chunk * len(JOINT_PHYS),
+             n_disp * world * chunk - n):
+        raise AssertionError(
+            f"stream sharded: rank {rank}: joint_1e7 differs from one card "
+            f"in {bad}; launches {counts} (want {want}); eager {eager}; "
+            f"plan {sr.n_dispatches} dispatches of {sr.chunk_cells} cells, "
+            f"devices {sr.devices}, peak {sr.peak_cells_per_chunk}, pad "
+            f"{info['pad_cells']}")
+    cons = SelectionConstraints(**CAT_STREAM_CONS)
+    cat = catalog_stream_space(dev)
+    c_one, c_sh = (cat.evaluate(metrics=("bandwidth_gbs",), stream=
+                                StreamConfig(chunk_cells=CAT_STREAM_CHUNK,
+                                             constraints=cons, devices=d))
+                   for d in (1, world))
+    c_bad = _differs(stream_digest(c_sh), stream_digest(c_one))
+    c_info = dict(flitsim.last_run_info()["stream.catalog"])
+    if c_bad or c_sh.devices != world or "(none)" not in c_sh.win_counts:
+        raise AssertionError(f"stream sharded: rank {rank}: the catalog "
+                             f"stream differs from one card in {c_bad}")
+    return dict(rank=rank, device=str(dev), phase_s=time.perf_counter()
+                - t_phase, wall_s=wall,
+                elapsed_s=info["elapsed_s"], marshal_s=info["marshal_s"],
+                overlap_frac=info["overlap_frac"],
+                dispatches=info["dispatches"], pad_cells=info["pad_cells"],
+                reduce_s=info["reduce_s"], reduce_bytes=info["reduce_bytes"],
+                transport=info["transport"],
+                backend=torch.distributed.get_backend(), peak_gib=peak,
+                launches=counts, digest_s=digest_s,
+                win_counts=sr.win_counts, n_cells=sr.n_cells,
+                chunk_cells=sr.chunk_cells,
+                peak_cells_per_chunk=sr.peak_cells_per_chunk,
+                catalog=dict(cells=c_sh.n_cells,
+                             dispatches=c_sh.n_dispatches,
+                             chunk_cells=c_sh.chunk_cells,
+                             one_card_dispatches=c_one.n_dispatches,
+                             none_cells=c_sh.win_counts["(none)"],
+                             reduce_s=c_info["reduce_s"],
+                             reduce_bytes=c_info["reduce_bytes"]))
+
+
+def _stream_rank(rank: int, world: int, out_dir: str) -> None:
+    """``--stream-sharded``'s rank: phase m alone."""
+    rec = _stream_sharded_work(rank, world, out_dir)
+    with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
+        json.dump({"stream_sharded": rec}, f)
+
+
+def stream_sharded_report(recs: list, cards: int, one_card: dict) -> dict:
+    """Phase m's lines from every rank's record and ``one_card``'s stream,
+    and its record."""
+    one = one_card["digest"]
+    for r in recs:
+        log(f"stream sharded: rank {r['rank']} on {r['device']}: joint_1e7 "
+            f"({r['n_cells']} joint cells, {r['chunk_cells']} stream cells "
+            f"a dispatch, {r['peak_cells_per_chunk']} joint cells) in "
+            f"{r['dispatches']} dispatches ({r['pad_cells']} padded cells "
+            f"in all), {r['wall_s']:.3f} s wall (set-up "
+            f"{r['wall_s'] - r['elapsed_s']:.3f} s, runner "
+            f"{r['elapsed_s']:.3f} s, marshal {r['marshal_s']:.3f} s, "
+            f"overlap_frac {r['overlap_frac']:.4f}); reduction "
+            f"{r['reduce_s']:.4f} s for {r['reduce_bytes']} bytes over "
+            f"{r['backend']} (transport {r['transport']}); launches "
+            f"{r['launches']}; peak {r['peak_gib']:.4f} GiB; digest "
+            f"{r['digest_s']:.2f} s; phase m on the rank {r['phase_s']:.2f} "
+            f"s; catalog {r['catalog']}")
+    log(f"stream sharded: {len(recs)} ranks on {cards} card(s): winners, "
+        f"win counts {one['win_counts']} and bests bitwise equal to one "
+        f"card's stream on every rank; the constrained catalog stream "
+        f"({recs[0]['catalog']['cells']} cells, "
+        f"{recs[0]['catalog']['dispatches']} dispatches a rank) bitwise "
+        f"equal to one card's, (none) {recs[0]['catalog']['none_cells']} "
+        f"[{card_line()}]")
+    return {"world": len(recs), "cards": cards, "ranks": recs,
+            "one_card_dispatches": one["n_dispatches"],
+            "one_card_wall_s": one_card["wall_s"]}
+
+
+def phase_stream_sharded() -> dict:
+    """Phase m alone (``--stream-sharded``): a world of four ranks (NCCL
+    with a card a rank, else gloo in host memory) for
+    :func:`_stream_sharded_work`."""
+    import shutil
+    import tempfile
+    from repro_torch.launch import mesh as mesh_mod
+    world, cards = 4, torch.cuda.device_count()
+    out_dir = tempfile.mkdtemp(prefix="repro_torch_stream_")
+    one_card = one_card_stream()
+    try:
+        with open(Path(out_dir) / "one_card.json", "w") as f:
+            json.dump(one_card, f)
+        log(f"stream sharded: {world} ranks on {cards} card(s), backend "
+            f"{mesh_mod.backend_for('cuda', world)}")
+        t0 = time.perf_counter()
+        mesh_mod.spawn(_stream_rank, world, (out_dir,), device="cuda")
+        spawn_s = time.perf_counter() - t0
+        recs = [json.loads((Path(out_dir) / f"rank{r}.json").read_text())[
+            "stream_sharded"] for r in range(world)]
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    rec = stream_sharded_report(recs, cards, one_card)
+    rec["spawn_wall_s"] = spawn_s
+    return rec
 
 
 def phase_perturbation() -> dict:
@@ -1563,7 +1792,7 @@ def phase_perturbation() -> dict:
     err_cat = max(close(f"catalog_param {m} card vs CPU",
                         res["cuda"][m].values, res["cpu"][m].values, 1e-6)
                   for m in metrics)
-    cons = SelectionConstraints(packaging="UCIe-A", max_power_w=40.0)
+    cons = SelectionConstraints(**CAT_STREAM_CONS)
     fronts = [r.frontier("bandwidth_gbs", where=r.feasible(cons)).values
               for r in res.values()]
     if not np.array_equal(fronts[0], fronts[1]):
@@ -1603,13 +1832,10 @@ def phase_perturbation() -> dict:
         "sim_efficiency"].values
     fix = flitsim.sweep_perturbed(perts, **kw)["sim_efficiency"].values
     err_sweep = close("sweep_perturbed adaptive vs fixed", ada, fix, 1e-3)
-    cat_space = DesignSpace([axis("read_fraction",
-                                  list(np.linspace(0.0, 1.0, 101))),
-                             axis("shoreline_mm", [2.0, 4.0, 8.0, 16.0])],
-                            device="cuda")
+    cat_space = catalog_stream_space("cuda")
     ref = cat_space.evaluate(metrics=("bandwidth_gbs", "power_w"))
     csr = cat_space.evaluate(metrics=("bandwidth_gbs",), stream=StreamConfig(
-        chunk_cells=64, constraints=cons))
+        chunk_cells=CAT_STREAM_CHUNK, constraints=cons))
     if not np.array_equal(csr.winners.values, ref.frontier(
             "bandwidth_gbs", where=ref.feasible(cons)).values):
         raise AssertionError("the streamed analytic frontier differs from "
@@ -2218,7 +2444,9 @@ def kernel_ms(fn, pattern: str, calls: int = 5) -> dict:
     """Device ms a launch of each kernel whose name matches ``pattern``, by
     the pattern's first group, from ``torch.profiler`` over ``calls``
     calls: the mean over the launches the profiler recorded (it does not
-    always record every launch; fewer are logged)."""
+    always record every launch; fewer are logged).  Where it records none
+    in three tries and ``pattern`` names one kernel, CUDA events time the
+    calls (logged)."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -2240,7 +2468,21 @@ def kernel_ms(fn, pattern: str, calls: int = 5) -> dict:
                 log(f"the profiler recorded {short} of {calls} calls' "
                     f"launches")
             return {k: us[k] / 1e3 / seen[k] for k in us}
-    raise AssertionError(f"the profiler saw no kernel {pattern}")
+    # it recorded nothing three times: a one-kernel call is timed with
+    # CUDA events over the calls instead (launch gaps included)
+    one = re.fullmatch(r"\((\w+)\)\w*", pattern)
+    if one is None:
+        raise AssertionError(f"the profiler saw no kernel {pattern}")
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(end) / calls
+    log(f"the profiler saw no kernel {pattern} in three tries; CUDA events "
+        f"over {calls} calls: {ms:.4f} ms a call")
+    return {one.group(1): ms}
 
 
 def phase_ssd_kernel():
@@ -3663,8 +3905,8 @@ def _elastic_check(ckpt_dir, ctx) -> dict:
 
 def _mesh_rank(rank, world, ckpt_dir, out_dir) -> None:
     """Phase j on one rank: the elastic restore onto (4, 1), then every
-    case of :data:`MESH_CASES`, then phase k's rank work in the same
-    world; each rank writes its records."""
+    case of :data:`MESH_CASES`, then phase k's rank work and phase m's in
+    the same world; each rank writes its records."""
     from repro_torch.models import sharding
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3686,19 +3928,24 @@ def _mesh_rank(rank, world, ckpt_dir, out_dir) -> None:
                 + json.dumps({k: round(v, 1) for k, v in
                               out["steps"][-1]["parts"].items()}))
     out["families"] = _families_work(rank, ctx_of)
+    torch.cuda.empty_cache()
+    out["stream_sharded"] = _stream_sharded_work(rank, world, out_dir)
     with open(Path(out_dir) / f"rank{rank}.json", "w") as f:
         json.dump(out, f)
 
 
-def phase_mesh():
+def phase_mesh(one_card: dict = None):
     """Phase j, the multi-device path: the training launcher at full width
     and depth on a (2, 2) mesh (a failure, a restart, the replay bitwise),
     its last checkpoint restored onto (4, 1) and onto one card bitwise,
     then one sharded step of each of :data:`MESH_CASES` against one card's
     and timed steps; four ranks, NCCL with a card each, gloo with the
     tensors staged through host memory where they share cards.  The same
-    ranks then run phase k's work (one world, one warm-up); returns the
-    record and each rank's phase k records for :func:`phase_families`."""
+    ranks then run phase k's work and phase m, the sharded stream (one
+    world, one warm-up); returns the record (phase m's under
+    ``"stream_sharded"``) and each rank's phase k records for
+    :func:`phase_families`.  ``one_card``: phase f''s ``joint_1e7`` digest
+    and wall (streamed here when None)."""
     import shutil
     import tempfile
     from repro_torch.checkpoint import ckpt, elastic
@@ -3716,6 +3963,10 @@ def phase_mesh():
     out_dir = tempfile.mkdtemp(prefix="repro_torch_mesh_out_")
     cfg = get_config("smollm-360m")
     try:
+        # phase m's yardstick
+        one_card = one_card or one_card_stream()
+        with open(Path(out_dir) / "one_card.json", "w") as f:
+            json.dump(one_card, f)
         argv = MESH_ARGV + ["--ckpt-dir", ckpt_dir]
         log(f"mesh: launcher {' '.join(argv)}")
         out = train_launcher_mod.main(argv)
@@ -3836,7 +4087,9 @@ def phase_mesh():
                transport=ranks[0]["transport"], launcher=launcher,
                elastic=dict(one_card=one_ok, mesh=list(ELASTIC_MESH),
                             step=el[0]["step"]),
-               steps=steps, wall_s=time.perf_counter() - t0)
+               steps=steps, wall_s=time.perf_counter() - t0,
+               stream_sharded=stream_sharded_report(
+                   [r["stream_sharded"] for r in ranks], cards, one_card))
     log(f"mesh: phase wall {rec['wall_s']:.1f} s (with phase k's rank work)")
     return rec, [r["families"] for r in ranks]
 
@@ -4798,7 +5051,11 @@ def main() -> None:
     ap.add_argument("--training", action="store_true",
                     help="only run the training phase")
     ap.add_argument("--mesh", action="store_true",
-                    help="only run the multi-device phases (j, k and l2)")
+                    help="only run the multi-device phases (j, k, l2 "
+                         "and m)")
+    ap.add_argument("--stream-sharded", action="store_true",
+                    help="only run the sharded stream (phase m) in a "
+                         "world of four ranks")
     ap.add_argument("--wrapper-ab", metavar="PARENT_ROOT",
                     help="only time the LM kernels' wrappers of another "
                          "tree and of this one in turns")
@@ -4845,6 +5102,12 @@ def main() -> None:
         print(card)
         print(json.dumps({"streaming": records}))
         return
+    if args.stream_sharded:
+        _build.build(["flit_sim"])
+        records = phase_stream_sharded()
+        print(card)
+        print(json.dumps({"stream_sharded": records}))
+        return
     if args.training:
         _build.build(["flash_attention", "rglru_scan", "ssd_scan"])
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -4854,7 +5117,8 @@ def main() -> None:
         print(json.dumps({"training": records}))
         return
     if args.mesh:
-        _build.build(["flash_attention", "rglru_scan", "ssd_scan"])
+        _build.build(["flash_attention", "rglru_scan", "ssd_scan",
+                      "flit_sim"])
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         records, fam = phase_mesh()
@@ -4889,7 +5153,9 @@ def main() -> None:
     dry = phase_dryrun_start()
     with concurrent.futures.ThreadPoolExecutor(1) as pool:
         division = pool.submit(phase_division)
-        mesh, fam = phase_mesh()
+        mesh, fam = phase_mesh({
+            "digest": stream["joint_1e7"]["digest"],
+            "wall_s": stream["joint_1e7"]["runs"][2][0]["wall_s"]})
         division.result()
     families = phase_families(fam)
     seq_parallel = phase_sequence_parallel(fam)
@@ -4953,6 +5219,11 @@ def main() -> None:
             "stream_launches": stream["joint_1e7"]["runs"][2][0][
                 "launches"][name],
             "stream_dispatches": stream["joint_1e7"]["dispatches"],
+            "stream_sharded_launches_per_rank": [
+                r["launches"][name]
+                for r in mesh["stream_sharded"]["ranks"]],
+            "stream_sharded_dispatches_per_rank": [
+                r["dispatches"] for r in mesh["stream_sharded"]["ranks"]],
             **{f"stream_chunk_{k}": trace_records["stream chunk"][name][k]
                for k in ("ms", "back_to_back_ms", "card_ms", "plain_ms",
                          "bound_ms", "bound_by", "cells", "cycles")},
@@ -4987,6 +5258,7 @@ def main() -> None:
                     rec["name"], 0)}
     log(f"streaming [{card}]: {json.dumps(stream)}")
     log(f"mesh [{card}]: {json.dumps(mesh)}")
+    log(f"stream sharded [{card}]: {json.dumps(mesh['stream_sharded'])}")
     log(f"mesh families [{card}]: {json.dumps(families)}")
     log(f"dryrun [{card}]: {json.dumps(dryrun_rec)}")
     log(f"sequence parallel [{card}]: {json.dumps(seq_parallel)}")

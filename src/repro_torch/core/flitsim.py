@@ -577,19 +577,26 @@ def _record_trace(family: str, phases: int, cycles: int, cells: int, *,
 
 def _record_stream(family: str, *, dispatches: int, prefetch: int,
                    pad_cells: int, overlap_frac: float, cells: int,
-                   elapsed_s: float, marshal_s: float) -> None:
+                   elapsed_s: float, marshal_s: float,
+                   shard: Optional[Dict[str, Any]] = None) -> None:
     """Telemetry of a streamed evaluation (``stream.*`` families): the
     dispatch count, the bounded in-flight depth, the replicated tail cells
     over all dispatches, the share of the host's marshalling wall time
     spent while the card still ran an earlier chunk (``overlap_frac``; 0
     on the CPU, where each chunk completes at once), the cells streamed, the wall seconds (the card's work included) and the
     marshalling seconds (``marshal_s / elapsed_s`` bounds what overlap can
-    win)."""
+    win); in a sharded stream the dispatches, marshal and overlap are
+    this rank's own slots and the wall includes the reduction.  ``shard``
+    (sharded streams only) adds ``devices``, ``rank``, the wall seconds
+    and payload bytes of the end-of-stream reduction (``reduce_s``,
+    ``reduce_bytes``) and its ``transport`` (``"device"``: NCCL on the
+    card; ``"host"``: gloo in host memory)."""
     _LAST_RUN_INFO[family] = {
         "mode": "stream", "dispatches": int(dispatches),
         "prefetch": int(prefetch), "pad_cells": int(pad_cells),
         "overlap_frac": float(overlap_frac), "cells": int(cells),
         "elapsed_s": elapsed_s, "marshal_s": marshal_s,
+        **(shard or {}),
     }
 
 

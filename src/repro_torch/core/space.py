@@ -108,12 +108,22 @@ class StreamConfig:
     resolve as running reductions, so only the winner codes (one small
     integer per cell) come back.
 
-    * ``chunk_cells`` — the per-dispatch cell budget (the peak number of
-      cells resident at once); clamped down when the space is smaller.
+    * ``chunk_cells`` — the per-rank, per-dispatch cell budget (the peak
+      number of cells resident at once on a rank); clamped down when the
+      space is smaller (to ``ceil(cells / devices)``).
     * ``axis_order`` — the chunked cell-axis order (default: canonical
       :data:`AXIS_ORDER`); a permutation of the space's cell axes that
       changes the dispatch order only, never the result.
-    * ``devices`` — ``None`` or ``1``: the port streams on one card.
+    * ``devices`` — the ranks the stream is sharded over.  ``None`` or
+      ``1``: this process streams the whole space on its own device (one
+      process owns one card, so the reference's default of every local
+      device is this process's card; inside a world each rank then
+      streams alone).  ``N > 1``: the size of the initialized
+      ``torch.distributed`` world, checked when the stream runs; rank
+      ``r`` evaluates slot ``r`` of every window of ``N * chunk_cells``
+      cells and every rank returns the same reduced result.  The
+      reference's subset of leading devices has no counterpart: a rank
+      outside it would have no result to return.
     * ``mode`` — argbest direction; ``None`` picks the metric's natural
       one (``min`` for ``pj_per_bit`` / ``power_w``, else ``max``).
     * ``constraints`` — optional
@@ -140,11 +150,9 @@ class StreamConfig:
         if int(self.prefetch) < 1:
             raise ValueError(f"StreamConfig.prefetch must be >= 1, got "
                              f"{self.prefetch}")
-        if self.devices is not None and int(self.devices) != 1:
-            raise ValueError(
-                f"StreamConfig(devices={self.devices}): the port streams "
-                "on one card (devices=None or 1); a stream sharded across "
-                "cards is not ported")
+        if self.devices is not None and int(self.devices) < 1:
+            raise ValueError(f"StreamConfig.devices must be >= 1, got "
+                             f"{self.devices}")
         if self.mode not in (None, "max", "min"):
             raise ValueError(f"StreamConfig.mode must be None, 'max' or "
                              f"'min', got {self.mode!r}")

@@ -13,6 +13,16 @@ feasibility resolve as RUNNING reductions:
   output that ever exists),
 * per-label win counts and best metric values, folded on the host.
 
+Sharded: under an initialized ``torch.distributed`` world of ``N`` ranks
+(one process a card), ``StreamConfig(devices=N)`` cuts every dispatch
+window of ``N * chunk`` cells into one slot a rank, as the reference's
+``("chunks",)`` mesh does; each rank marshals, runs and folds only its
+own slots, and at the end of the stream one all-reduce SUM of the counts,
+one all-reduce MAX (MIN) of the bests and one all-gather of the winner
+codes give every rank the same :class:`StreamResult`.  Integer sums and
+max / min do not depend on order, so reducing once equals the
+reference's reduction per dispatch bit for bit.
+
 Equality contract: the streamed winner labels equal the materialized
 ``argbest`` on every grid, bit for bit.  A simulated chunk is ONE
 one-phase launch of each trace kernel on per-cell parameter columns
@@ -48,6 +58,8 @@ from typing import Any, Callable, Dict, List, Sequence, Tuple
 
 import numpy as np
 import torch
+
+import torch.distributed as dist
 
 from repro_torch.core import space as space_mod
 
@@ -141,22 +153,84 @@ class StreamResult:
         return self.winners
 
 
-def _dispatch_plan(n_cells: int, stream) -> Tuple[int, int]:
-    """``(chunk, dispatches)`` for a flat cell space on one card."""
-    chunk = max(1, min(int(stream.chunk_cells), n_cells))
-    return chunk, -(-n_cells // chunk)
+def _shards(stream) -> Tuple[int, int]:
+    """``(devices, rank)``: the ranks ``stream`` is sharded over and this
+    process's slot.  ``devices`` None or 1 is one card, in a world or
+    not; any other count must be the size of the initialized world."""
+    want = 1 if stream.devices is None else int(stream.devices)
+    if want == 1:
+        return 1, 0
+    how = (f"start {want} ranks with repro_torch.launch.mesh.spawn(fn, "
+           f"{want}) or torchrun --nproc-per-node {want}")
+    if not (dist.is_available() and dist.is_initialized()):
+        raise ValueError(
+            f"StreamConfig(devices={want}) shards the stream over {want} "
+            f"ranks, but no torch.distributed world is initialized (this "
+            f"process is 1 rank); {how}")
+    world = dist.get_world_size()
+    if world != want:
+        raise ValueError(
+            f"StreamConfig(devices={want}) does not match the world of "
+            f"{world} ranks: devices must be 1 (each rank streams the "
+            f"whole space) or the world's size; {how}")
+    return want, dist.get_rank()
 
 
-def _chunk_ids(lo: int, step: int, n_cells: int):
-    """Global cell ids + validity for dispatch window [lo, lo+step);
-    the tail pads by repeating the last live cell."""
-    live = min(step, n_cells - lo)
-    ids = np.arange(lo, lo + step, dtype=np.int64)
-    if live < step:
-        ids[live:] = ids[live - 1]
-    valid = np.zeros(step, np.int32)
-    valid[:live] = 1
-    return ids, valid, live
+def _dispatch_plan(n_cells: int, chunk_cells: int,
+                   devices: int) -> Tuple[int, int, int]:
+    """``(chunk, step, dispatches)`` for a flat cell space cut into
+    windows of ``step = devices * chunk`` cells, ``chunk`` a rank (the
+    reference's plan)."""
+    chunk = max(1, min(int(chunk_cells), -(-n_cells // devices)))
+    step = devices * chunk
+    return chunk, step, -(-n_cells // step)
+
+
+def _chunk_ids(lo: int, width: int, n_cells: int):
+    """Global cell ids + validity for the cells [lo, lo+width) of one
+    slot; cells past the space pad by repeating its last cell (the
+    reference's tail), so a slot past the end is all padding."""
+    ids = np.arange(lo, lo + width, dtype=np.int64)
+    valid = (ids < n_cells).astype(np.int32)
+    return np.minimum(ids, n_cells - 1), valid
+
+
+def _reduce_shards(devices: int, chunk: int, sums: np.ndarray,
+                   best: np.ndarray, is_max: bool, codes: np.ndarray,
+                   n_cells: int):
+    """Every rank's folds combined: one all-reduce SUM of the int64
+    ``sums``, one all-reduce MAX (MIN unless ``is_max``) of the f64
+    ``best`` and one all-gather of each rank's int16 ``codes`` (its slot
+    of every window, ``[dispatches * chunk, ...]``), reassembled in global
+    cell order; returns ``(sums, best, codes[:n_cells], telemetry)``.
+    NCCL takes tensors on this rank's card, gloo host tensors."""
+    if devices == 1:
+        return sums, best, codes[:n_cells], {}
+    t0 = time.perf_counter()
+    nccl = dist.get_backend() == "nccl"
+    dev = (torch.device("cuda", torch.cuda.current_device()) if nccl
+           else torch.device("cpu"))
+    s = torch.from_numpy(np.ascontiguousarray(sums)).to(dev)
+    b = torch.from_numpy(np.ascontiguousarray(best)).to(dev)
+    dist.all_reduce(s, op=dist.ReduceOp.SUM)
+    dist.all_reduce(b, op=dist.ReduceOp.MAX if is_max
+                    else dist.ReduceOp.MIN)
+    # the codes travel as bytes: NCCL has no 16-bit integer type
+    mine = torch.from_numpy(np.ascontiguousarray(codes).reshape(-1)
+                            .view(np.uint8)).to(dev)
+    parts = [torch.empty_like(mine) for _ in range(devices)]
+    dist.all_gather(parts, mine)
+    trail = codes.shape[1:]
+    grid = torch.stack(parts).cpu().numpy().view(np.int16).reshape(
+        (devices, -1, chunk) + trail)       # [rank, window, slot cell, ...]
+    out = np.swapaxes(grid, 0, 1).reshape((-1,) + trail)[:n_cells]
+    info = {"devices": devices, "rank": dist.get_rank(),
+            "reduce_s": time.perf_counter() - t0,
+            "reduce_bytes": (s.numel() * s.element_size()
+                             + b.numel() * b.element_size()
+                             + devices * mine.numel()),
+            "transport": "device" if nccl else "host"}
+    return s.cpu().numpy(), b.cpu().numpy(), out, info
 
 
 def _winner_array(codes: np.ndarray, shape_perm, order, full, labels_ext):
@@ -276,7 +350,8 @@ class _Dispatcher:
 # =========================================================================
 
 
-def _stream_sim(space, metric: str, sim, stream) -> StreamResult:
+def _stream_sim(space, metric: str, sim, stream, devices: int,
+                rank: int) -> StreamResult:
     from repro_torch.core import flitsim
     from repro_torch.kernels.flit_sim.ref import ASYM_ROWS, SYM_ROWS
     if sim.mode != "fixed":
@@ -338,7 +413,8 @@ def _stream_sim(space, metric: str, sim, stream) -> StreamResult:
     order = _cell_order(dims_all, present, stream.axis_order)
     shape_perm = tuple(sizes[i] for i in order)
     n_cells = int(np.prod(shape_perm))
-    chunk, n_dispatch = _dispatch_plan(n_cells, stream)
+    chunk, step, n_dispatch = _dispatch_plan(n_cells, stream.chunk_cells,
+                                             devices)
 
     # perturbation-major parameter stacks (row = q * P_fam + key index,
     # simulate_grid's layout): [fields, Q * P_fam] host arrays, gathered
@@ -348,14 +424,17 @@ def _stream_sim(space, metric: str, sim, stream) -> StreamResult:
                   dataclasses.fields(flitsim.SymmetricFlitParams)]
     asym_fields = [f.name for f in
                    dataclasses.fields(flitsim.AsymmetricLaneParams)]
-    sym_host = np.asarray(
-        [[getattr(flitsim.SYMMETRIC_PARAMS[k].perturbed(p), f)
-          for p in perts for k in sym_keys] for f in sym_fields],
-        np.float32).reshape(len(sym_fields), -1)
-    asym_host = np.asarray(
-        [[getattr(flitsim.ASYMMETRIC_PARAMS[k].perturbed(p), f)
-          for p in perts for k in asym_keys] for f in asym_fields],
-        np.float32).reshape(len(asym_fields), -1)
+    # each perturbed parameter set built once (a rank builds them all)
+    sym_sets = [flitsim.SYMMETRIC_PARAMS[k].perturbed(p)
+                for p in perts for k in sym_keys]
+    asym_sets = [flitsim.ASYMMETRIC_PARAMS[k].perturbed(p)
+                 for p in perts for k in asym_keys]
+    sym_host = np.asarray([[getattr(q, f) for q in sym_sets]
+                           for f in sym_fields],
+                          np.float32).reshape(len(sym_fields), -1)
+    asym_host = np.asarray([[getattr(q, f) for q in asym_sets]
+                            for f in asym_fields],
+                           np.float32).reshape(len(asym_fields), -1)
     # the [C, P] efficiency columns come sym-then-asym; put them in key order
     col_src = [sym_keys.index(k) if k in flitsim.SYMMETRIC_PARAMS
                else p_sym + asym_keys.index(k) for k in keys]
@@ -376,11 +455,9 @@ def _stream_sim(space, metric: str, sim, stream) -> StreamResult:
     perm = torch.as_tensor(col_src, device=dev)
     identity = col_src == list(range(n_protocols))
     labels_dev = torch.arange(n_protocols, device=dev)
-    live_of: Dict[int, int] = {}
 
     def marshal(t, v):
-        lo = t * chunk
-        ids, valid, live_of[t] = _chunk_ids(lo, chunk, n_cells)
+        ids, valid = _chunk_ids(t * step + rank * chunk, chunk, n_cells)
         multi = np.unravel_index(ids, shape_perm)
         by_dim = {dims_all[order[j]]: multi[j] for j in range(len(order))}
         q_idx = by_dim["protocol_param"]
@@ -425,25 +502,28 @@ def _stream_sim(space, metric: str, sim, stream) -> StreamResult:
         best = m.masked_fill(~ok, float("-inf")).amax(dim=(0, 1))
         return codes.to(torch.int16), counts, best
 
-    codes_out = np.empty((n_cells, n_phys), np.int16)
+    # this rank's slot of every window (the codes of its padded cells too)
+    codes_out = np.empty((n_dispatch * chunk, n_phys), np.int16)
     counts_total = np.zeros((n_phys, n_protocols), np.int64)
     best_total = np.full((n_protocols,), -np.inf, np.float64)
 
     def fold(t, host):
         codes, counts, best = host
-        lo, live = t * chunk, live_of.pop(t)
-        codes_out[lo:lo + live] = codes[:live]
+        codes_out[t * chunk:(t + 1) * chunk] = codes
         counts_total[...] += counts.astype(np.int64)
         np.maximum(best_total, best.astype(np.float64), out=best_total)
 
     t0 = time.perf_counter()
     disp = _Dispatcher(dev, stream.prefetch, layout)
     disp.run(n_dispatch, marshal, compute, fold)
+    counts_total, best_total, codes_out, shard = _reduce_shards(
+        devices, chunk, counts_total, best_total, True, codes_out, n_cells)
     flitsim._record_stream(
         "stream.sim", dispatches=n_dispatch, prefetch=disp.prefetch,
-        pad_cells=n_dispatch * chunk - n_cells,
+        pad_cells=n_dispatch * step - n_cells,
         overlap_frac=disp.overlap_frac, cells=n_cells,
-        elapsed_s=time.perf_counter() - t0, marshal_s=disp.marshal_s)
+        elapsed_s=time.perf_counter() - t0, marshal_s=disp.marshal_s,
+        shard=shard)
 
     pert_labels = (tuple(pert_ax.labels) if pert_ax is not None
                    else ("baseline",))
@@ -464,7 +544,7 @@ def _stream_sim(space, metric: str, sim, stream) -> StreamResult:
                        for i, k in enumerate(keys)},
         n_cells=n_cells * n_phys, n_stream_cells=n_cells,
         n_dispatches=n_dispatch, chunk_cells=chunk,
-        peak_cells_per_chunk=chunk * n_phys, devices=1, compiles=0)
+        peak_cells_per_chunk=chunk * n_phys, devices=devices, compiles=0)
 
 
 # =========================================================================
@@ -508,7 +588,8 @@ def _knee_admissibility(space, items, cons, sim):
     return sub, dim
 
 
-def _stream_catalog(space, metric: str, sim, stream) -> StreamResult:
+def _stream_catalog(space, metric: str, sim, stream, devices: int,
+                    rank: int) -> StreamResult:
     from repro_torch.core import flitsim, memsys
     from repro_torch.core import selector as selector_mod
     if (space.axes.get("catalog_param") is not None
@@ -539,7 +620,8 @@ def _stream_catalog(space, metric: str, sim, stream) -> StreamResult:
     order = _cell_order(dims_all, present, stream.axis_order)
     shape_perm = tuple(sizes[i] for i in order)
     n_cells = int(np.prod(shape_perm))
-    chunk, n_dispatch = _dispatch_plan(n_cells, stream)
+    chunk, step, n_dispatch = _dispatch_plan(n_cells, stream.chunk_cells,
+                                             devices)
 
     cons = stream.constraints
     if cons is None:
@@ -565,11 +647,9 @@ def _stream_catalog(space, metric: str, sim, stream) -> StreamResult:
     labels_dev = torch.arange(n_systems, device=dev)
     layout = [("valid", (1, chunk)), ("xs", (1, chunk)), ("ys", (1, chunk)),
               ("sls", (1, chunk)), ("adm", (n_systems, chunk))]
-    live_of: Dict[int, int] = {}
 
     def marshal(t, v):
-        lo = t * chunk
-        ids, valid, live_of[t] = _chunk_ids(lo, chunk, n_cells)
+        ids, valid = _chunk_ids(t * step + rank * chunk, chunk, n_cells)
         multi = np.unravel_index(ids, shape_perm)
         by_dim = {dims_all[order[j]]: multi[j] for j in range(len(order))}
         if mix_dims:
@@ -603,28 +683,31 @@ def _stream_catalog(space, metric: str, sim, stream) -> StreamResult:
         best = red.amax(dim=1) if is_max else red.amin(dim=1)
         return codes.to(torch.int16), counts, best, none_ct
 
-    codes_out = np.empty(n_cells, np.int16)
-    counts_total = np.zeros(n_systems, np.int64)
-    none_total = np.zeros((), np.int64)
+    # this rank's slot of every window; the counts, then the (none) count
+    codes_out = np.empty(n_dispatch * chunk, np.int16)
+    counts_total = np.zeros(n_systems + 1, np.int64)
     best_total = np.full(n_systems, fill, np.float64)
     acc = np.maximum if is_max else np.minimum
 
     def fold(t, host):
         codes, counts, best, none_ct = host
-        lo, live = t * chunk, live_of.pop(t)
-        codes_out[lo:lo + live] = codes[:live]
-        counts_total[...] += counts.astype(np.int64)
-        none_total[...] += np.int64(none_ct[0])
+        codes_out[t * chunk:(t + 1) * chunk] = codes
+        counts_total[:n_systems] += counts.astype(np.int64)
+        counts_total[n_systems] += np.int64(none_ct[0])
         acc(best_total, best.astype(np.float64), out=best_total)
 
     t0 = time.perf_counter()
     disp = _Dispatcher(dev, stream.prefetch, layout)
     disp.run(n_dispatch, marshal, compute, fold)
+    counts_total, best_total, codes_out, shard = _reduce_shards(
+        devices, chunk, counts_total, best_total, is_max, codes_out,
+        n_cells)
     flitsim._record_stream(
         "stream.catalog", dispatches=n_dispatch, prefetch=disp.prefetch,
-        pad_cells=n_dispatch * chunk - n_cells,
+        pad_cells=n_dispatch * step - n_cells,
         overlap_frac=disp.overlap_frac, cells=n_cells,
-        elapsed_s=time.perf_counter() - t0, marshal_s=disp.marshal_s)
+        elapsed_s=time.perf_counter() - t0, marshal_s=disp.marshal_s,
+        shard=shard)
 
     full = [(d, True, tuple(space.axes[d].labels)) for d in mix_dims]
     sl_labels = (tuple(sl_ax.labels) if sl_ax is not None
@@ -634,7 +717,7 @@ def _stream_catalog(space, metric: str, sim, stream) -> StreamResult:
                             np.asarray(keys + ("(none)",), dtype=object))
     win_counts = {k: int(counts_total[i]) for i, k in enumerate(keys)}
     if cons is not None:
-        win_counts["(none)"] = int(none_total)
+        win_counts["(none)"] = int(counts_total[n_systems])
     return StreamResult(
         metric=metric, reduce_dim="system", mode=mode, labels=keys,
         winners=winners, win_counts=win_counts,
@@ -643,7 +726,7 @@ def _stream_catalog(space, metric: str, sim, stream) -> StreamResult:
                        for i, k in enumerate(keys)},
         n_cells=n_cells, n_stream_cells=n_cells,
         n_dispatches=n_dispatch, chunk_cells=chunk,
-        peak_cells_per_chunk=chunk, devices=1, compiles=0)
+        peak_cells_per_chunk=chunk, devices=devices, compiles=0)
 
 
 def stream_evaluate(space, metrics, sim, stream) -> StreamResult:
@@ -664,6 +747,7 @@ def stream_evaluate(space, metrics, sim, stream) -> StreamResult:
                 f"call, got {wanted}; run one stream per metric")
         metric = wanted[0]
     sim = sim if sim is not None else space_mod.FIXED_SIM
+    devices, rank = _shards(stream)
     for name in ("trace", "k", "ucie_line_ui", "device_line_ui"):
         if space.axes.get(name) is not None:
             raise ValueError(
@@ -675,9 +759,9 @@ def stream_evaluate(space, metrics, sim, stream) -> StreamResult:
                 "StreamConfig.constraints stream through the analytic "
                 "metrics only; the simulated frontier mirrors the "
                 "materialized unconstrained argbest")
-        return _stream_sim(space, metric, sim, stream)
+        return _stream_sim(space, metric, sim, stream, devices, rank)
     if metric in space_mod.ANALYTIC_METRICS:
-        return _stream_catalog(space, metric, sim, stream)
+        return _stream_catalog(space, metric, sim, stream, devices, rank)
     raise ValueError(
         f"metric {metric!r} is not streamable; choose from "
         f"{STREAM_SIM_METRICS + space_mod.ANALYTIC_METRICS}")

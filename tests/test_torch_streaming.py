@@ -221,11 +221,18 @@ def test_stream_runs_each_chunk_through_the_trace_runner(monkeypatch):
 
 
 def test_devices_other_than_one_refused():
-    with pytest.raises(ValueError, match="one card"):
-        StreamConfig(devices=4)
-    with pytest.raises(ValueError, match="one card"):
+    """``StreamConfig(devices=4)`` is built (the world is checked when the
+    stream runs), ``devices=0`` is not, and a stream over 4 ranks in a
+    process with no ``torch.distributed`` world raises, naming both counts
+    and how to start one; nothing falls back to one card.  The sharded
+    stream itself: ``tests/test_torch_stream_sharded.py``."""
+    assert StreamConfig(devices=4).key()[2] == 4
+    with pytest.raises(ValueError, match=">= 1"):
         StreamConfig(devices=0)
     assert StreamConfig(devices=1).key()[2] == 1
+    with pytest.raises(ValueError, match=r"devices=4\).*1 rank.*spawn"):
+        _sim_space().evaluate(metrics=("sim_efficiency",),
+                              stream=StreamConfig(devices=4))
 
 
 def test_compiles_reads_zero_and_frontier_alias():
