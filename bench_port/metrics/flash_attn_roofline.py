@@ -1,0 +1,17 @@
+"""The flash-attention kernel's share of its roofline in the profiled
+slice: the bound of every prefill's attention layers (causal, the
+prompt's length; ``counts.flash_attn_bound_s``) over the device time of
+the ``flash_fwd_kernel`` kernels, in %."""
+from bench_port import counts
+
+
+def read(run):
+    if run.slice is None:
+        return None
+    spent = run.slice.by_kind().get("flash_attention_fwd", 0.0)
+    cfg = run.cfg
+    layers = sum(k in ("attn", "moe") for k in cfg.layer_kinds())
+    bound = sum(layers * counts.flash_attn_bound_s(
+        n, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
+        for s in run.slice_steps for _, _, n in s.prefills)
+    return 100.0 * bound / spent if spent > 0 and bound > 0 else None
