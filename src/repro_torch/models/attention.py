@@ -54,6 +54,7 @@ from repro_torch.models import sharding
 from repro_torch.models.layers import apply_rope, cast, rope_angles, \
     row_parallel
 from repro_torch.models.schema import Leaf
+from repro_torch.runtime import spans
 
 
 def attn_schema(cfg: ModelConfig, cross: bool = False):
@@ -213,6 +214,7 @@ def attend_decode_cp(q, k_cache, v_cache, valid_mask, ctx):
     (one device rounds its normalised weights to bf16 before the weighted
     sum; a split softmax has no such point)."""
     hd = q.shape[-1]
+    _count_upcast(k_cache, v_cache)
     logits = torch.einsum("bqkgx,bskx->bqkgs", q.float(),
                           k_cache.float()) / math.sqrt(hd)
     logits = torch.where(valid_mask[:, None, None, None, :], logits,
@@ -225,6 +227,14 @@ def attend_decode_cp(q, k_cache, v_cache, valid_mask, ctx):
                       p.sum(dim=-1, keepdim=True)], dim=-1)
     part = sharding.all_reduce(part, ctx, ctx.tp_axis)
     return (part[..., :hd] / part[..., hd:]).to(q.dtype)
+
+
+def _count_upcast(k_cache, v_cache) -> None:
+    """``copy.kv_upcast``: the bytes read and written by the f32 copies
+    of both caches that decode attention makes."""
+    if spans.on():
+        spans.add("copy.kv_upcast", sum(t.numel() * (t.element_size() + 4)
+                                        for t in (k_cache, v_cache)))
 
 
 def attend_decode(q, k_cache, v_cache, cache_len=None, valid_mask=None):
@@ -241,6 +251,7 @@ def attend_decode(q, k_cache, v_cache, cache_len=None, valid_mask=None):
     s = k_cache.shape[1]
     scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32,
                                           device=q.device))
+    _count_upcast(k_cache, v_cache)
     logits = torch.einsum("bqkgx,bskx->bqkgs", q.float(),
                           k_cache.float()) * scale
     if valid_mask is None:
@@ -268,6 +279,8 @@ def cache_positions(t, ctx, cache_len=None, decodable: bool = True):
         pad = t.new_zeros((t.shape[0], cache_len - t.shape[1])
                           + tuple(t.shape[2:]))
         t = torch.cat([t, pad], dim=1)
+        if spans.on():       # the concatenation's reads and writes
+            spans.add("copy.cache_pad", 2 * t.numel() * t.element_size())
     if not sharding.active(ctx) or ctx.tp_size() == 1:
         return t
     if sharding.tp_split(t.shape[1], ctx):

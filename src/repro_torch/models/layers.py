@@ -22,11 +22,16 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import sharding
 from repro_torch.models.schema import Leaf
+from repro_torch.runtime import spans
 
 COMPUTE_DTYPE = torch.bfloat16
 
 
 def cast(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in bf16; a cast is counted as ``copy.weight_cast`` (bytes
+    read and written) while spans record."""
+    if x.dtype != COMPUTE_DTYPE and spans.on():
+        spans.add("copy.weight_cast", x.numel() * (x.element_size() + 2))
     return x.to(COMPUTE_DTYPE)
 
 

@@ -32,6 +32,7 @@ from repro_torch.models import schema as schema_mod
 from repro_torch.models import sharding
 from repro_torch.models import transformer as tf_mod
 from repro_torch.models.layers import COMPUTE_DTYPE, vocab_parallel
+from repro_torch.runtime import spans
 
 def cross_entropy(logits, labels, mask=None, z_loss: float = 1e-4,
                   ctx=None, split_vocab: bool = False):
@@ -234,6 +235,12 @@ class Model:
         all) and returns its blocks of the caches (:meth:`cache_specs`).
         Full-attention self caches are padded to ``pad_cache_to``
         positions (before they split over 'model')."""
+        with spans.span("model.prefill"):
+            return self._prefill(params, tokens, pad_cache_to,
+                                 patch_embeds, frames, ctx)
+
+    def _prefill(self, params, tokens, pad_cache_to, patch_embeds, frames,
+                 ctx):
         cfg = self.cfg
         self.check_mesh(ctx)
         if patch_embeds is not None and cfg.frontend != "vision":
@@ -262,6 +269,10 @@ class Model:
         ``tokens`` and ``positions`` are the global batch, ``caches`` the
         rank's blocks (as :meth:`prefill` and :meth:`init_decode_caches`
         give them), and the logits every row and column."""
+        with spans.span("model.decode_step"):
+            return self._decode_step(params, tokens, caches, positions, ctx)
+
+    def _decode_step(self, params, tokens, caches, positions, ctx):
         self.check_mesh(ctx)
         ctx, rows = sharding.batch_rows(ctx, tokens.shape[0])
         kw = dict(mode="decode", caches=caches, positions=positions[rows],

@@ -54,6 +54,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import sharding
 from repro_torch.models.layers import cast
 from repro_torch.models.schema import Leaf
+from repro_torch.runtime import spans
 
 
 def moe_schema(cfg: ModelConfig):
@@ -201,6 +202,14 @@ def moe_local(xt, router_w, wi, wg, wo, cfg: ModelConfig, cap: int,
     return out.to(xt.dtype), aux, dropped
 
 
+def _count_drops(dropped, pairs: int) -> None:
+    """``moe.pairs`` and ``moe.dropped_pairs`` (``moe_local``'s share
+    times its pairs, on the device) while spans record."""
+    if spans.on():
+        spans.add("moe.pairs", pairs)
+        spans.add_device("moe.dropped_pairs", dropped.detach() * pairs)
+
+
 def moe_block(params, x, cfg: ModelConfig, routing: Optional[dict] = None,
               ctx=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] -> (out [B, S, d], aux_loss scalar).  ``routing``: a
@@ -209,21 +218,27 @@ def moe_block(params, x, cfg: ModelConfig, routing: Optional[dict] = None,
     the data rank's rows and the expert slabs its 'model' block."""
     b, s, d = x.shape
     args = (params["wi"], params.get("wg"), params["wo"], cfg)
+    k = cfg.experts_per_token
     if not sharding.active(ctx) or (ctx.tp_size() == 1
                                     and ctx.dp_size() == 1):
-        out, aux, _ = moe_local(x.reshape(b * s, d), params["router"],
-                                *args, capacity(b * s, cfg), routing)
+        out, aux, dropped = moe_local(x.reshape(b * s, d), params["router"],
+                                      *args, capacity(b * s, cfg), routing)
+        _count_drops(dropped, b * s * k)
         return out.reshape(b, s, d), aux
     if ctx.tp_size() == 1:
         xg = sharding.gather_dp(x, ctx, 0)
-        out, aux, _ = moe_local(xg.reshape(-1, d), params["router"], *args,
-                                capacity(xg.shape[0] * s, cfg), routing)
+        out, aux, dropped = moe_local(xg.reshape(-1, d), params["router"],
+                                      *args, capacity(xg.shape[0] * s, cfg),
+                                      routing)
+        _count_drops(dropped, xg.shape[0] * s * k)
         i = ctx.index_of(ctx.dp_axes)
         return out.reshape(xg.shape)[i * b:(i + 1) * b], aux
     if cfg.num_experts % ctx.tp_size():
         raise ValueError(f"{cfg.name}: {cfg.num_experts} experts do not "
                          f"split over {ctx.tp_size()} 'model' ranks")
     router = sharding.gather_tp(params["router"], ctx, 1)
+    # expert parallel: ``moe_local``'s share is of the rank's own pairs,
+    # whose number it keeps, so the counters leave this branch out
     out, aux, _ = moe_local(x.reshape(b * s, d), router, *args,
                             capacity(b * s, cfg), routing, ctx)
     out = sharding.leave_tp(out.float(), ctx).to(x.dtype)

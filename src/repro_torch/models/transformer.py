@@ -58,6 +58,7 @@ from repro_torch.models.layers import (
     region_norm, rmsnorm_schema, unembed, whole_logits,
 )
 from repro_torch.models.schema import Leaf
+from repro_torch.runtime import spans
 
 MODES = ("train", "prefill", "decode")
 
@@ -121,12 +122,32 @@ def _ring_gather(kv, window: int):
 
 def attn_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
                cache=None, routing=None, ctx=None, cache_len=None,
-               sp: bool = False):
+               sp: bool = False, layer=None):
     """-> (x, new cache (None in train mode), moe aux loss or None).
     Under a mesh a prefill's cache holds every KV head and, where they
     divide over 'model', the rank's block of the positions (padded first
     to ``cache_len``); decode reads and writes that block.  ``sp``: ``x``
-    holds the rank's positions (sequence parallel)."""
+    holds the rank's positions (sequence parallel).  The attention half
+    and the MoE or MLP half are the spans ``block.attn`` and
+    ``block.moe`` / ``block.mlp``, ``n`` = ``layer``."""
+    with spans.span("block.attn", n=layer):
+        x, new_cache = _attn_half(lp, x, cfg, mode, positions, cache, ctx,
+                                  cache_len, sp)
+    if "moe" in lp:
+        with spans.span("block.moe", n=layer):
+            h2 = region_norm(lp["ln2"], x, cfg, ctx, sp)
+            m, aux = moe_mod.moe_block(lp["moe"], h2, cfg, routing, ctx)
+            return x + sharding.leave_region(m, ctx, sp), new_cache, aux
+    with spans.span("block.mlp", n=layer):
+        h2 = region_norm(lp["ln2"], x, cfg, ctx, sp)
+        out = sharding.leave_region(mlp(lp["mlp"], h2, cfg, ctx), ctx, sp)
+        return x + out, new_cache, None
+
+
+def _attn_half(lp, x, cfg: ModelConfig, mode: str, positions, cache, ctx,
+               cache_len, sp: bool):
+    """``attn_block``'s norm through its output projection and residual
+    -> (x, new cache)."""
     h = region_norm(lp["ln1"], x, cfg, ctx, sp)
     window = cfg.window if cfg.attention == "local" else 0
     tp = sharding.active(ctx) and ctx.tp_size() > 1
@@ -158,33 +179,33 @@ def attn_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
 
     x = x + sharding.leave_region(attn.out_project(lp["attn"], o, cfg, ctx),
                                   ctx, sp)
-    h2 = region_norm(lp["ln2"], x, cfg, ctx, sp)
-    if "moe" in lp:
-        m, aux = moe_mod.moe_block(lp["moe"], h2, cfg, routing, ctx)
-        return x + sharding.leave_region(m, ctx, sp), new_cache, aux
-    out = sharding.leave_region(mlp(lp["mlp"], h2, cfg, ctx), ctx, sp)
-    return x + out, new_cache, None
+    return x, new_cache
 
 
 def rec_block(lp, x, cfg: ModelConfig, *, mode: str, positions,
-              cache=None, ctx=None, cache_len=None, sp: bool = False):
-    h = region_norm(lp["ln1"], x, cfg, ctx, sp)
-    o, new_state = rglru_mod.rglru_block(lp["rec"], h, cfg, state=cache,
-                                         decode=(mode == "decode"), ctx=ctx)
-    if mode != "train":
-        new_state = rglru_mod.whole_state(new_state, cfg, ctx)
-    x = x + sharding.leave_region(o, ctx, sp)
-    h2 = region_norm(lp["ln2"], x, cfg, ctx, sp)
-    out = sharding.leave_region(mlp(lp["mlp"], h2, cfg, ctx), ctx, sp)
-    return x + out, new_state, None
+              cache=None, ctx=None, cache_len=None, sp: bool = False,
+              layer=None):
+    with spans.span("block.rec", n=layer):
+        h = region_norm(lp["ln1"], x, cfg, ctx, sp)
+        o, new_state = rglru_mod.rglru_block(
+            lp["rec"], h, cfg, state=cache, decode=(mode == "decode"),
+            ctx=ctx)
+        if mode != "train":
+            new_state = rglru_mod.whole_state(new_state, cfg, ctx)
+        x = x + sharding.leave_region(o, ctx, sp)
+        h2 = region_norm(lp["ln2"], x, cfg, ctx, sp)
+        out = sharding.leave_region(mlp(lp["mlp"], h2, cfg, ctx), ctx, sp)
+        return x + out, new_state, None
 
 
 def ssm_block_apply(lp, x, cfg: ModelConfig, *, mode: str, positions,
-                    cache=None, ctx=None, cache_len=None, sp: bool = False):
-    h = region_norm(lp["ln1"], x, cfg, ctx, sp)
-    o, new_state = ssm_mod.ssm_block(lp["ssm"], h, cfg, state=cache,
-                                     decode=(mode == "decode"), ctx=ctx)
-    return x + sharding.leave_region(o, ctx, sp), new_state, None
+                    cache=None, ctx=None, cache_len=None, sp: bool = False,
+                    layer=None):
+    with spans.span("block.ssm", n=layer):
+        h = region_norm(lp["ln1"], x, cfg, ctx, sp)
+        o, new_state = ssm_mod.ssm_block(lp["ssm"], h, cfg, state=cache,
+                                         decode=(mode == "decode"), ctx=ctx)
+        return x + sharding.leave_region(o, ctx, sp), new_state, None
 
 
 _BLOCK_FNS = {"attn": attn_block, "moe": attn_block, "rec": rec_block,
@@ -232,7 +253,8 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, caches=None,
         top = {k: v for k, v in params.items() if k != "blocks"}
         params = dict(sharding.fsdp(top, specs, ctx),
                       blocks=params["blocks"])
-    x = embed(params["embedding"], tokens, cfg, ctx)
+    with spans.span("model.embed"):
+        x = embed(params["embedding"], tokens, cfg, ctx)
     if patch_embeds is not None and mode != "decode":
         pe = torch.matmul(cast(patch_embeds),
                           cast(params["frontend"]["proj"]))
@@ -273,13 +295,15 @@ def forward(params, tokens, cfg: ModelConfig, *, mode: str, caches=None,
         x, new_caches[name], _ = _BLOCK_FNS[kind](
             lp, x, cfg, mode=mode, positions=positions,
             cache=caches[name] if mode == "decode" else None, ctx=ctx,
-            cache_len=cache_len, sp=sp)
+            cache_len=cache_len, sp=sp, layer=i)
 
-    x = region_norm(params["final_norm"], x, cfg, ctx, sp)
-    if mode == "prefill":
-        x = x[:, -1:, :]
-    return whole_logits(unembed(params["embedding"], x, cfg, ctx)[:, 0],
-                        cfg, ctx), new_caches
+    with spans.span("model.head"):
+        x = region_norm(params["final_norm"], x, cfg, ctx, sp)
+        if mode == "prefill":
+            x = x[:, -1:, :]
+        logits = whole_logits(unembed(params["embedding"], x, cfg, ctx)[:, 0],
+                              cfg, ctx)
+    return logits, new_caches
 
 
 def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int, device):

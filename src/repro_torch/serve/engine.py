@@ -43,6 +43,7 @@ from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import sharding
 from repro_torch.models.model import Model
+from repro_torch.runtime import spans
 
 
 @dataclasses.dataclass
@@ -66,7 +67,11 @@ def _splice(batch_c, one_c, slot: int) -> None:
         for b, o in zip(batch_c, one_c):
             _splice(b, o, slot)
     else:
-        batch_c[slot:slot + 1].copy_(one_c)
+        dst = batch_c[slot:slot + 1]
+        if spans.on():
+            spans.add("copy.splice", one_c.numel()
+                      * (one_c.element_size() + dst.element_size()))
+        dst.copy_(one_c)
 
 
 def check_servable(cfg: ModelConfig, max_len: int) -> None:
@@ -130,18 +135,22 @@ class ServingEngine:
                 f"does not fit the engine's max_len={self.max_len} KV "
                 f"slots (need prompt length < max_len); truncate the "
                 f"prompt or build the engine with a larger max_len")
+        spans.mark("engine.submit", req.rid)
         self.queue.append(req)
 
     def _prefill_into_slot(self, slot: int, req: Request):
-        prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
-                                 device=self.device)[None, :]
-        logits, caches = self.model.prefill(self.params, prompt,
-                                            pad_cache_to=self.max_len,
-                                            ctx=self.ctx)
-        tok = int(torch.argmax(logits[0]))
+        with spans.span("engine.prefill", req.rid, len(req.prompt)):
+            prompt = torch.as_tensor(np.asarray(req.prompt, np.int64),
+                                     device=self.device)[None, :]
+            logits, caches = self.model.prefill(self.params, prompt,
+                                                pad_cache_to=self.max_len,
+                                                ctx=self.ctx)
+            with spans.span("engine.read_first_token", req.rid):
+                tok = int(torch.argmax(logits[0]))
         req.generated.append(tok)
         if slot in self.own:
-            _splice(self.caches, caches, slot - self.own.start)
+            with spans.span("engine.splice", req.rid):
+                _splice(self.caches, caches, slot - self.own.start)
         self.active[slot] = req
         self.positions[slot] = len(req.prompt)
         self.last_token[slot] = tok
@@ -162,10 +171,17 @@ class ServingEngine:
     def step(self) -> int:
         """Admit + decode one token for all active slots.  Returns the
         number of active sequences processed."""
+        with spans.span("engine.step"):
+            return self._step()
+
+    def _step(self) -> int:
         for slot in self._free_slots():
             if not self.queue:
                 break
-            self._prefill_into_slot(slot, self.queue.popleft())
+            req = self.queue[0]
+            with spans.span("engine.admit", req.rid):
+                self.queue.popleft()
+                self._prefill_into_slot(slot, req)
 
         active_idx = [i for i, r in enumerate(self.active) if r is not None]
         if not active_idx:
@@ -176,13 +192,26 @@ class ServingEngine:
             self.recorder.on_decode([int(self.positions[i])
                                      for i in active_idx])
 
-        tokens = torch.as_tensor(self.last_token.astype(np.int64),
-                                 device=self.device)[:, None]
-        positions = torch.as_tensor(self.positions.astype(np.int64),
-                                    device=self.device)[:, None]
+        with spans.span("engine.decode", n=len(active_idx)):
+            self._decode(active_idx)
+        if self.recorder is not None:
+            self.recorder.on_tick(
+                len(self.queue),
+                sum(r is not None for r in self.active))
+        return len(active_idx)
+
+    def _decode(self, active_idx: List[int]) -> None:
+        """One token for every active slot, read back and booked."""
+        with spans.span("engine.decode_inputs"):
+            tokens = torch.as_tensor(self.last_token.astype(np.int64),
+                                     device=self.device)[:, None]
+            positions = torch.as_tensor(self.positions.astype(np.int64),
+                                        device=self.device)[:, None]
         logits, self.caches = self.model.decode_step(
             self.params, tokens, self.caches, positions, ctx=self.ctx)
-        next_tokens = torch.argmax(logits, dim=-1).cpu().numpy()
+        next_tokens = torch.argmax(logits, dim=-1)
+        with spans.span("engine.read_tokens"):
+            next_tokens = next_tokens.cpu().numpy()
 
         for i in active_idx:
             req = self.active[i]
@@ -194,13 +223,9 @@ class ServingEngine:
                     or len(req.generated) >= req.max_new_tokens
                     or self.positions[i] >= self.max_len - 1):
                 req.done = True
+                spans.mark("engine.finish", req.rid)
                 self.finished.append(req)
                 self._free_slot(i)
-        if self.recorder is not None:
-            self.recorder.on_tick(
-                len(self.queue),
-                sum(r is not None for r in self.active))
-        return len(active_idx)
 
     def run_until_drained(self, max_ticks: int = 10_000) -> List[Request]:
         ticks = 0

@@ -24,6 +24,7 @@ import torch
 
 from repro_torch.models import sharding
 from repro_torch.models.model import Model
+from repro_torch.runtime import spans
 from repro_torch.train import grad_compress
 from repro_torch.train.optimizer import (AdamW, AdamWState, tree_leaves,
                                          tree_map)
@@ -137,9 +138,9 @@ def make_train_step(model: Model, optimizer: AdamW,
             grads, error_fb = grad_compress.compress_tree(grads, error_fb,
                                                           ctx, specs)
 
-        # a profiler range (a few µs when no profiler runs): the step's
-        # kernel time splits into the optimizer's and the rest
-        with torch.profiler.record_function(OPTIMIZER_RANGE):
+        # a span (a profiler range): the step's kernel time splits into
+        # the optimizer's and the rest
+        with spans.span(OPTIMIZER_RANGE):
             new_params, opt_state, opt_metrics = optimizer.update(
                 grads, state.opt, params, ctx, specs)
         out_metrics = {"loss": loss, **opt_metrics}
