@@ -8,6 +8,7 @@
     python3 chip_smoke.py --training
     python3 chip_smoke.py --mesh
     python3 chip_smoke.py --stream-sharded
+    python3 chip_smoke.py --decode-attention
 
 Needs one CUDA card and the CUDA toolkit (``nvcc``).  Phases, each fatal
 on failure:
@@ -88,7 +89,8 @@ on failure:
       smollm-360m at full width; each with the launches asserted (8
       ``flash_attention_fwd`` and 18 ``rglru_scan`` per recurrentgemma-2b
       prefill, 32 ``flash_attention_fwd`` per smollm-360m prefill, none per
-      decode step); mamba2-2.7b at full width and depth (64 layers,
+      decode step, whose ``decode_attention`` calls come in whole ticks of
+      one a layer with a KV cache); mamba2-2.7b at full width and depth (64 layers,
       2,832,074,240 parameters; ``ssd_scan``): the launcher (8 requests,
       4 slots, 16 new tokens, ``--max-len 128``) and an engine run with 4
       prompts of 2000-2400 tokens, at least two not a multiple of the
@@ -110,7 +112,7 @@ on failure:
       tokens, 4 slots, 16 new tokens) and an engine run with 4 prompts of
       2000-2400 tokens (``max_len`` 2560, 8 new tokens), 16
       ``flash_attention_fwd`` launches per prefill and none per decode
-      step, the share of (token, choice) pairs each prefill's capacity
+      step (16 ``decode_attention`` calls a tick), the share of (token, choice) pairs each prefill's capacity
       drops logged; its long prompts decoded again one request at a time
       with capacity factor 8 (no drops: the reference's own test's factor)
       against a longer prefill; internvl2-1b (256 patch embeddings + 40
@@ -258,7 +260,16 @@ on failure:
    Skv, at 37 and 1000 frames) timed with
    their share of the bound and TFLOP/s, and ptxas's registers and spills
    of every flash instance logged (a spill in the bf16 tensor-core kernel
-   fails the run);
+   fails the run).  The decode-attention kernel (no TPU counterpart: it
+   replaces the plain ``attend_decode``) at the two olmoe-1b-7b cells'
+   tick shapes (32 slots of 2560 positions, 16 slots of 4160; 16 KV heads
+   of 128; each slot's live positions drawn from the cell's mix), held
+   within two bf16 ulps of the largest output of its plain version, timed
+   one call, back to back and on the card (its three kernels summed)
+   beside its bound (the live bf16 K and V read once), the plain version
+   and ``scaled_dot_product_attention`` on the same mask; ptxas's
+   registers and spills of each instance logged (a spill of a served
+   instance, a group of one or two, fails the run);
 
 5. report: one ``{"kernels": [...]}`` line, then the result line.
 
@@ -285,7 +296,9 @@ phase 3, for other ``flit_sim.cu`` files (a parent commit's, unpacked with
 and the trace kernels of phase 3, and prints one ``{"traces": {...}}``
 line last.  ``--streaming`` runs only phases 1-2 and the streamed and
 perturbation phases of 4 (f'), and prints one ``{"streaming": {...}}``
-line last.
+line last.  ``--decode-attention`` runs only phases 1-2 (its library) and
+the decode-attention kernel of phase 3, and prints one
+``{"decode_attention": {...}}`` line last.
 """
 import argparse
 import concurrent.futures
@@ -320,6 +333,8 @@ from repro_torch.core.ucie import (  # noqa: E402
 from repro_torch.explorer import bridge_mode, sweep_mode  # noqa: E402
 from repro_torch.kernels.flit_pack import ops as pack_ops  # noqa: E402
 from repro_torch.kernels.flit_pack import ref as pack_ref  # noqa: E402
+from repro_torch.kernels.decode_attention import ops as da_ops  # noqa: E402
+from repro_torch.kernels.decode_attention import ref as da_ref  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.flash_attention import ref as fa_ref  # noqa: E402
 from repro_torch.kernels.flit_sim import kernel as flit_kernel  # noqa: E402
@@ -406,7 +421,8 @@ SOURCES = {"symmetric_run": "src/repro_torch/csrc/flit_sim.cu",
            "pack_flits": "src/repro_torch/csrc/flit_pack.cu",
            "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
            "rglru_scan": "src/repro_torch/csrc/rglru_scan.cu",
-           "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu"}
+           "ssd_scan": "src/repro_torch/csrc/ssd_scan.cu",
+           "decode_attention": "src/repro_torch/csrc/decode_attention.cu"}
 REPLACES = {"symmetric_run": "src/repro/kernels/flit_sim/kernel.py:84",
             "asymmetric_periodic":
                 "src/repro/kernels/flit_sim/kernel.py:105",
@@ -421,7 +437,9 @@ REPLACES = {"symmetric_run": "src/repro/kernels/flit_sim/kernel.py:84",
             "flash_attention_fwd":
                 "src/repro/kernels/flash_attention/kernel.py:93",
             "rglru_scan": "src/repro/kernels/rglru_scan/kernel.py:64",
-            "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:81"}
+            "ssd_scan": "src/repro/kernels/ssd_scan/kernel.py:81",
+            # no TPU kernel: the reference's plain attend_decode
+            "decode_attention": "src/repro/models/attention.py:165"}
 #: the Fig-13 design space of the main path (48 cells)
 FIG13_KS = tuple(range(1, 9))
 FIG13_US = (8.0, 16.0)
@@ -576,12 +594,13 @@ def reset_counts() -> None:
     fa_ops.reset_launches()
     lru_ops.reset_launches()
     ssd_ops.reset_launches()
+    da_ops.reset_launches()
 
 
 def read_counts() -> dict:
     """Every kernel's launch count since :func:`reset_counts`."""
     return {**ops.launches, **pack_ops.launches, **fa_ops.launches,
-            **lru_ops.launches, **ssd_ops.launches}
+            **lru_ops.launches, **ssd_ops.launches, **da_ops.launches}
 
 
 def pipe_rows(ks, us, ds) -> torch.Tensor:
@@ -2057,8 +2076,8 @@ LRU_LARGEST = "4 x 4096"
 #: timed three ways (one call, back to back, on the card alone)
 LRU_TIMED = (LRU_PATH, "recurrentgemma-2b long prompt", LRU_LARGEST)
 #: launches per prefill on the serving path (one per attention / recurrent
-#: layer) and per decode step (none: decode attention and the one-step
-#: recurrence are plain PyTorch)
+#: layer; none per decode step: the one-step recurrence and SSM step are
+#: plain PyTorch)
 PER_PREFILL = {"recurrentgemma-2b": {"flash_attention_fwd": 8,
                                      "rglru_scan": 18, "ssd_scan": 0},
                "smollm-360m": {"flash_attention_fwd": 32, "rglru_scan": 0,
@@ -2072,6 +2091,12 @@ PER_PREFILL = {"recurrentgemma-2b": {"flash_attention_fwd": 8,
                # 24 encoder, 24 decoder and 24 cross attentions
                "seamless-m4t-large-v2": {"flash_attention_fwd": 72,
                                          "rglru_scan": 0, "ssd_scan": 0}}
+#: decode-attention calls per decode step on one card: one a layer that
+#: attends over a KV cache (an enc-dec decoder's self attention; its cross
+#: attention is the plain ``attend_decode``)
+PER_DECODE_STEP = {"recurrentgemma-2b": 8, "smollm-360m": 32,
+                   "mamba2-2.7b": 0, "olmoe-1b-7b": 16, "internvl2-1b": 24,
+                   "seamless-m4t-large-v2": 24}
 #: bf16 tolerance of the card-vs-CPU model comparison: TOL_EPS bf16
 #: epsilons (2^-7) of the largest CPU logit (tests/test_torch_models.py)
 BF16_EPS = 2.0 ** -7
@@ -2583,15 +2608,23 @@ def serving_run(name, fn, arch, n_prefills):
     if got != want:
         raise AssertionError(f"{name}: launches {got}, want {want} "
                              f"({n_prefills} prefills, none per decode step)")
-    others = {k: v for k, v in counts.items() if k not in want and v}
+    # a whole number of ticks of decode-attention calls, some if the
+    # model attends over a KV cache
+    per_step, calls = PER_DECODE_STEP[arch], counts["decode_attention"]
+    if calls % max(per_step, 1) or (calls > 0) != (per_step > 0):
+        raise AssertionError(f"{name}: {calls} decode-attention calls, not "
+                             f"ticks of {per_step}")
+    others = {k: v for k, v in counts.items()
+              if k not in want and k != "decode_attention" and v}
     if others:
         raise AssertionError(f"{name}: unexpected launches {others}")
     tokens = sum(len(r.generated) for r in done)
     log(f"main path: {name}: {len(done)} requests, {tokens} tokens in "
         f"{wall:.3f} s ({tokens / wall:.1f} tok/s), peak memory "
-        f"{peak:.2f} GiB; launches {got}")
+        f"{peak:.2f} GiB; launches {got}, decode attention {calls} "
+        f"({calls // max(per_step, 1)} ticks of {per_step})")
     return dict(wall_s=wall, tokens=tokens, tok_per_s=tokens / wall,
-                peak_gib=peak, launches=got)
+                peak_gib=peak, launches=got, decode_attention_calls=calls)
 
 
 def check_requests(name, done, n, new_tokens, vocab):
@@ -3127,10 +3160,13 @@ def model_run(arch, n_text, extra, steps=8) -> dict:
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     want = PER_PREFILL[arch]
     got = {key: at_prefill[key] for key in want}
-    if got != want or counts != at_prefill:
+    # the decode steps add one decode-attention call a layer each
+    after = dict(at_prefill, decode_attention=at_prefill["decode_attention"]
+                 + steps * PER_DECODE_STEP[arch])
+    if got != want or counts != after:
         raise AssertionError(f"{arch}: launches {got} at the prefill (want "
                              f"{want}), {counts} after {steps} decode "
-                             f"steps (want none more)")
+                             f"steps (want {after})")
     if not torch.isfinite(logits.float()).all() or \
             logits.shape != (1, cfg.padded_vocab):
         raise AssertionError(f"{arch}: logits {tuple(logits.shape)} not "
@@ -3141,7 +3177,8 @@ def model_run(arch, n_text, extra, steps=8) -> dict:
                                         for key, m in extra.items())
         + f" ({prefill_s:.3f} s) and {steps} decode steps: {tokens} tokens "
         f"in {wall:.3f} s ({tokens / wall:.1f} tok/s), peak memory "
-        f"{peak:.2f} GiB; launches {got} at the prefill, none in decode")
+        f"{peak:.2f} GiB; launches {got} at the prefill, in decode only "
+        f"{PER_DECODE_STEP[arch]} decode-attention calls a step")
     return dict(wall_s=wall, prefill_s=prefill_s, tokens=tokens,
                 tok_per_s=tokens / wall, peak_gib=peak, launches=got,
                 params=model.param_count())
@@ -4992,6 +5029,116 @@ def family_kernel_record(name: str, families: dict) -> dict:
             "transport": families["transport"]}
 
 
+#: decode attention at the benchmark's olmoe-1b-7b ticks: (slots,
+#: max_len, KV heads, group, hd) and the mixes' (prompt median, sigma,
+#: clip; output median, sigma, clip), whose log-normal draws set each
+#: slot's live positions (its prompt and a uniform share of its output)
+DA_PATH = {
+    "chat": ((32, 2560, 16, 1, 128), (1020, 0.6, 128, 2048),
+             (129, 0.7, 16, 512)),
+    "code": ((16, 4160, 16, 1, 128), (1500, 0.6, 256, 4096),
+             (13, 0.8, 4, 64)),
+}
+
+
+def da_lengths(prompt, output, slots: int, seed: int) -> torch.Tensor:
+    rng = np.random.default_rng(seed)
+
+    def draw(median, sigma, lo, hi):
+        return np.clip(np.round(median * np.exp(
+            sigma * rng.standard_normal(slots))), lo, hi)
+    n = draw(*prompt) + np.floor(rng.random(slots) * draw(*output)) + 1
+    return torch.as_tensor(n, dtype=torch.int32)
+
+
+def da_ptxas() -> dict:
+    """ptxas's registers and spills of each decode-attention kernel
+    instance (mangled names); a spill of an instance with a group of at
+    most 2 (the served shapes) is fatal."""
+    text = _build.BUILD_LOG.get("decode_attention")
+    if text is None:
+        log("ptxas [decode_attention]: library was already built, no report")
+        return {}
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1) if "decode_attn" in m.group(1) else None
+            if name:
+                out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name]["spills"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+    for name, rep in out.items():
+        log(f"ptxas {name}: {rep}")
+        small = re.search(r"Li([12])ELi4E", name)
+        if small and rep.get("spills", 1):
+            raise AssertionError(f"decode attention instance {name} spills")
+    return out
+
+
+def phase_decode_attention() -> dict:
+    """The decode-attention kernel at the two olmoe cells' tick shapes:
+    held against its plain version (bf16: rtol and atol 2^-7 of the
+    largest), timed one call, back to back and on the card (the profiler's
+    three kernels of a call, summed) beside its bound (each slot's live
+    bf16 K and V read once, q read and the output written once, at 3.35
+    TB/s), the plain version, and ``scaled_dot_product_attention`` on the
+    same boolean mask (timed only; the port never calls it)."""
+    records = {"ptxas": da_ptxas()}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for label, ((b, s, kh, g, hd), prompt, output) in DA_PATH.items():
+        gen = torch.Generator(device=DEV).manual_seed(31)
+        q, k, v = (torch.randn(shape, generator=gen, device=DEV).to(
+            torch.bfloat16) for shape in ((b, 1, kh, g, hd), (b, s, kh, hd),
+                                          (b, s, kh, hd)))
+        lengths = torch.clamp(da_lengths(prompt, output, b, 41), max=s)
+        live = int(lengths.sum())
+        lengths = lengths.to(DEV)
+        got = da_ops.decode_attention(q, k, v, lengths)
+        want = da_ref.decode_attention_ref(q, k, v, lengths)
+        err = close(f"decode_attention @ {label}", got.float().cpu(),
+                    want.float().cpu(),
+                    2.0 ** -6 * want.float().abs().max().item())
+        nbytes = 2 * (2 * live * kh * hd + 2 * b * kh * g * hd)
+        bound = nbytes / PEAK_BYTES_PER_S * 1e3
+        call = lambda: da_ops.decode_attention(q, k, v, lengths)
+        card = kernel_ms(call, r"(decode_attn_\w+?)_kernel")
+        mask = (torch.arange(s, device=DEV)[None, :]
+                < lengths[:, None])[:, None, None, :]
+        qs = q.reshape(b, kh * g, 1, hd)
+        ks, vs = (t.permute(0, 2, 1, 3).repeat_interleave(g, dim=1)
+                  .contiguous() for t in (k, v))
+        rec = dict(
+            shape=[b, s, kh, g, hd], live_positions=live,
+            mean_live=live / b, max_abs_err=err, bytes=nbytes,
+            ms=time_ms(call, 20), back_to_back_ms=stream_ms(call, 20),
+            card_ms=sum(card.values()), stage_ms=card,
+            plain_ms=time_ms(lambda: da_ref.decode_attention_ref(
+                q, k, v, lengths), 5),
+            library_ms=time_ms(lambda: sdpa(qs, ks, vs, attn_mask=mask), 20),
+            bound_ms=bound, bound_by="bytes")
+        rec["share_of_bound"] = bound / rec["card_ms"]
+        records[label] = rec
+        log(f"kernel decode_attention @ {label} {rec['shape']} (mean live "
+            f"{rec['mean_live']:.0f} positions): max |diff| vs plain "
+            f"{err:.3g}; one call {rec['ms']:.4f} ms, back to back "
+            f"{rec['back_to_back_ms']:.4f} ms, on the card "
+            f"{rec['card_ms']:.4f} ms ({card}), "
+            f"{100 * rec['share_of_bound']:.1f}% of its bound "
+            f"{bound:.4f} ms ({nbytes / 1e6:.1f} MB); plain "
+            f"{rec['plain_ms']:.4f} ms, scaled_dot_product_attention "
+            f"{rec['library_ms']:.4f} ms")
+    return records
+
+
 def lm_kernel_records(lm_records, serving):
     """The ``{"kernels": [...]}`` entries of the serving slices' kernels:
     times at the largest shape (and the path's), launches from the
@@ -5061,6 +5208,9 @@ def main() -> None:
                          "tree and of this one in turns")
     ap.add_argument("--dryrun", action="store_true",
                     help="only run the dry-run phase (l1)")
+    ap.add_argument("--decode-attention", action="store_true",
+                    help="only check and time the decode-attention kernel "
+                         "at the olmoe cells' tick shapes")
     ap.add_argument("--dryrun-cells", nargs=2, metavar=("DEVICE", "DIR"),
                     help="l1's subprocess: trace the cells on DEVICE "
                          "into DIR")
@@ -5089,6 +5239,13 @@ def main() -> None:
         turns = wrapper_ab(args.wrapper_ab)
         print(card)
         print(json.dumps({"wrapper_ab": turns}))
+        return
+    if args.decode_attention:
+        secs = _build.build(["decode_attention"])
+        log(f"build: {secs} s")
+        records = phase_decode_attention()
+        print(card)
+        print(json.dumps({"decode_attention": records}))
         return
     if args.dryrun:
         _build.build(["flit_sim"])
@@ -5143,6 +5300,7 @@ def main() -> None:
     lm_records = phase_lm_kernels()
     lm_records["rglru_scan"] = phase_lru_kernel()
     lm_records["ssd_scan"] = phase_ssd_kernel()
+    decode_attn = phase_decode_attention()
     counts = phase_main_path()
     stream = phase_streaming()
     serving = phase_serving()
@@ -5229,6 +5387,20 @@ def main() -> None:
                          "bound_ms", "bound_by", "cells", "cycles")},
         })
     kernels += lm_kernel_records(lm_records, serving)
+    chat = decode_attn["chat"]
+    kernels.append({
+        "name": "decode_attention", "route": "cuda",
+        "source": SOURCES["decode_attention"],
+        "replaces": REPLACES["decode_attention"], "tpu_kernel": False,
+        "launches": "one call (three kernels) a layer a decode tick",
+        "ptxas": decode_attn["ptxas"],
+        **{k: chat[k] for k in ("ms", "back_to_back_ms", "card_ms",
+                                "plain_ms", "library_ms", "bound_ms",
+                                "bound_by", "share_of_bound",
+                                "max_abs_err", "shape")},
+        "code": {k: decode_attn["code"][k] for k in (
+            "ms", "back_to_back_ms", "card_ms", "plain_ms", "library_ms",
+            "bound_ms", "share_of_bound", "max_abs_err", "shape")}})
     for rec in kernels:
         if rec["name"] in LM_KERNELS:
             rec["training"] = training_kernel_record(rec["name"], training)

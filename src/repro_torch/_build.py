@@ -26,7 +26,8 @@ SOURCES: Dict[str, str] = {"flit_sim": "csrc/flit_sim.cu",
                             "flit_pack": "csrc/flit_pack.cu",
                             "flash_attention": "csrc/flash_attention.cu",
                             "rglru_scan": "csrc/rglru_scan.cu",
-                            "ssd_scan": "csrc/ssd_scan.cu"}
+                            "ssd_scan": "csrc/ssd_scan.cu",
+                            "decode_attention": "csrc/decode_attention.cu"}
 
 #: exact f32 semantics: no FMA contraction, IEEE division (no fast math)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

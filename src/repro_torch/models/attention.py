@@ -9,8 +9,14 @@ Two execution paths:
     training through its ``torch.autograd.Function``), its plain version
     on the CPU.  The reference computes the same function
     with its streaming-softmax oracle ``attend_chunked``.
-  * ``attend_decode`` — one new token against a KV cache, plain PyTorch
-    (the reference computes it outside any Pallas kernel too).
+  * decode — one new token against a KV cache (:func:`decode_attend`):
+    the decode-attention wrapper
+    (:func:`repro_torch.kernels.decode_attention.ops.decode_attention`)
+    over each row's live prefix of the cache, the CUDA kernel on the card
+    (which reads the bf16 caches in place), its plain version on the CPU.
+    The reference computes it outside any Pallas kernel.  The context-
+    parallel decode, the enc-dec cross attention (an arbitrary mask) and
+    direct callers take the plain ``attend_decode``.
 
 Layout: q [B, S, K, G, hd] (H = K*G query heads grouped by KV head),
 k/v [B, S, K, hd].  GQA never materializes repeated KV.
@@ -48,6 +54,8 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention.ref import attend_masked
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.ref import NEG_INF
 from repro_torch.models import sharding
@@ -214,7 +222,7 @@ def attend_decode_cp(q, k_cache, v_cache, valid_mask, ctx):
     (one device rounds its normalised weights to bf16 before the weighted
     sum; a split softmax has no such point)."""
     hd = q.shape[-1]
-    _count_upcast(k_cache, v_cache)
+    da_ops.count_upcast(k_cache, v_cache)
     logits = torch.einsum("bqkgx,bskx->bqkgs", q.float(),
                           k_cache.float()) / math.sqrt(hd)
     logits = torch.where(valid_mask[:, None, None, None, :], logits,
@@ -229,16 +237,8 @@ def attend_decode_cp(q, k_cache, v_cache, valid_mask, ctx):
     return (part[..., :hd] / part[..., hd:]).to(q.dtype)
 
 
-def _count_upcast(k_cache, v_cache) -> None:
-    """``copy.kv_upcast``: the bytes read and written by the f32 copies
-    of both caches that decode attention makes."""
-    if spans.on():
-        spans.add("copy.kv_upcast", sum(t.numel() * (t.element_size() + 4)
-                                        for t in (k_cache, v_cache)))
-
-
 def attend_decode(q, k_cache, v_cache, cache_len=None, valid_mask=None):
-    """One-token attention against a cache.
+    """One-token attention against a cache, plain PyTorch.
 
     q: [B, 1, K, G, hd]; caches: [B, S, K, hd].
     cache_len: int or [B] — number of valid positions (the new token's
@@ -247,24 +247,24 @@ def attend_decode(q, k_cache, v_cache, cache_len=None, valid_mask=None):
     Scores and the weighted sum accumulate in f32 from the bf16 operands
     (the reference's ``preferred_element_type=float32``).
     """
-    hd = q.shape[-1]
-    s = k_cache.shape[1]
-    scale = 1.0 / torch.sqrt(torch.tensor(hd, dtype=torch.float32,
-                                          device=q.device))
-    _count_upcast(k_cache, v_cache)
-    logits = torch.einsum("bqkgx,bskx->bqkgs", q.float(),
-                          k_cache.float()) * scale
     if valid_mask is None:
-        pos = torch.arange(s, device=q.device)
+        pos = torch.arange(k_cache.shape[1], device=q.device)
         valid_mask = pos[None, :] < torch.as_tensor(
             cache_len, device=q.device).reshape(-1, 1)
-    logits = torch.where(valid_mask[:, None, None, None, :], logits,
-                         torch.tensor(NEG_INF, dtype=torch.float32,
-                                      device=q.device))
-    w = torch.softmax(logits, dim=-1)
-    out = torch.einsum("bqkgs,bskx->bqkgx", w.to(q.dtype).float(),
-                       v_cache.float())
-    return out.to(q.dtype)
+    da_ops.count_upcast(k_cache, v_cache)
+    return attend_masked(q, k_cache, v_cache, valid_mask)
+
+
+def live_lengths(pos, s: int, window: int):
+    """[B] int32: how many of a decode cache's ``s`` positions row b
+    attends over after writing position ``pos[b]`` — a prefix, by tensor
+    ops with no host read: ``pos + 1`` (at most ``s``), and with a ring
+    (``window > 0``) all ``s`` once it has wrapped
+    (``pos >= window - 1``)."""
+    n = torch.clamp(pos + 1, max=s)
+    if window > 0:
+        n = torch.where(pos >= window - 1, s, n)
+    return n.to(torch.int32)
 
 
 def cache_positions(t, ctx, cache_len=None, decodable: bool = True):
@@ -296,28 +296,31 @@ def cache_positions(t, ctx, cache_len=None, decodable: bool = True):
 def decode_attend(q, k, v, cache, pos, window: int, ctx):
     """Write the new token's K/V into the cache (in place; with ``ctx``,
     'model' ranks each holding a block of the positions, on the rank that
-    holds its position or ring slot) and attend over the cache.  ->
-    (cache, o [B, 1, K, G, hd])."""
+    holds its position or ring slot) and attend over the cache: on one
+    device over each row's live prefix (:func:`live_lengths`) through the
+    decode-attention wrapper, under 'model' ranks by
+    :func:`attend_decode_cp`.  -> (cache, o [B, 1, K, G, hd])."""
     kc, vc = cache["k"], cache["v"]
     rows = torch.arange(q.shape[0], device=q.device)
-    # under 'model' ranks the cache holds the rank's block of positions
-    p0 = 0 if ctx is None else ctx.tp_index() * kc.shape[1]
     at = pos % window if window > 0 else pos
+    if ctx is None:
+        kc[rows, at] = k[:, 0]
+        vc[rows, at] = v[:, 0]
+        o = da_ops.decode_attention(q.contiguous(), kc, vc,
+                                    live_lengths(pos, kc.shape[1], window))
+        return {"k": kc, "v": vc}, o
+    # under 'model' ranks the cache holds the rank's block of positions
+    p0 = ctx.tp_index() * kc.shape[1]
     j = p0 + torch.arange(kc.shape[1], device=q.device)
     if window > 0:
         valid = (j[None, :] <= pos[:, None]) | (pos[:, None] >= window - 1)
     else:
         valid = j[None, :] <= pos[:, None]
-    if ctx is None:
-        kc[rows, at] = k[:, 0]
-        vc[rows, at] = v[:, 0]
-        o = attend_decode(q, kc, vc, valid_mask=valid)
-    else:
-        mine = (at >= p0) & (at < p0 + kc.shape[1])
-        slot = torch.clamp(at - p0, 0, kc.shape[1] - 1)
-        kc[rows, slot] = torch.where(mine[:, None, None], k[:, 0],
-                                     kc[rows, slot])
-        vc[rows, slot] = torch.where(mine[:, None, None], v[:, 0],
-                                     vc[rows, slot])
-        o = attend_decode_cp(q, kc, vc, valid, ctx)
+    mine = (at >= p0) & (at < p0 + kc.shape[1])
+    slot = torch.clamp(at - p0, 0, kc.shape[1] - 1)
+    kc[rows, slot] = torch.where(mine[:, None, None], k[:, 0],
+                                 kc[rows, slot])
+    vc[rows, slot] = torch.where(mine[:, None, None], v[:, 0],
+                                 vc[rows, slot])
+    o = attend_decode_cp(q, kc, vc, valid, ctx)
     return {"k": kc, "v": vc}, o

@@ -6,7 +6,13 @@ plain version (the f32 CUDA-core kernel: atol 3e-5, rtol 1e-4; the bf16
 tensor-core kernel: one output ulp, atol 4e-3, rtol 2^-7, at head dims 16
 to 256, ragged Sq and Skv, Sq = 1, windows, offsets, MQA and GQA, one and
 two warpgroups a block, and the element-load path for hd % 8 != 0),
-the trace-scan kernels bitwise to their plain versions (at the serving
+the decode-attention kernels within tolerance of their plain version
+(bf16: one ulp of each output element and one of the largest, rtol and
+atol 2^-7; f32: 2^-16 of each; only the f32 sums' order differs) at the
+serving cells' and the other families' shapes, each call repeated bit
+for bit, its refusals, and a decode step through it (its launches and
+counters, no f32 cache copy, one sync a layer in attention), the
+trace-scan kernels bitwise to their plain versions (at the serving
 frontier's shape, one phase against the fixed engine, ragged phase
 counts, cells that take the IEEE rerun and 1026 cells),
 the RG-LRU scan bitwise and the SSD scan within the reference's
@@ -35,6 +41,8 @@ import torch
 
 from repro_torch.configs import get
 from repro_torch.core import flitsim
+from repro_torch.kernels.decode_attention import ops as da_ops
+from repro_torch.kernels.decode_attention import ref as da_ref
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention import ref as fa_ref
 from repro_torch.core.space import ADAPTIVE_SIM, DesignSpace, axis
@@ -47,6 +55,7 @@ from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.kernels.ssd_scan import ref as ssd_ref
 from repro_torch.models.ssm import ssd_chunked
 from repro_torch.models import build
+from repro_torch.runtime import spans
 from repro_torch.serve import Request, ServingEngine
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -1018,3 +1027,148 @@ def test_reduced_training_step_on_card(dev, arch, seq):
         want, _, _ = value_and_grad(model, params, src.place(batch, "cpu"))
     assert abs(float(loss) - float(want)) <= 8 * 2.0 ** -7 * abs(
         float(want))
+
+
+# -- decode attention ----------------------------------------------------------
+
+#: label -> (B, S, K, G, hd, lengths, dtype): the two olmoe cells' ticks,
+#: the other families' decode heads (smollm-360m, internvl2-1b,
+#: recurrentgemma-2b's ring of 2048 at batch 1, before and after it fills),
+#: the edges of the kernel's instances (one live position, hd 8 with a
+#: group of 16), and f32
+DA_CASES = {
+    "olmoe chat": (32, 2560, 16, 1, 128, "ragged", torch.bfloat16),
+    "olmoe code": (16, 4160, 16, 1, 128, "ragged", torch.bfloat16),
+    "smollm-360m": (8, 1024, 5, 3, 64, "ragged", torch.bfloat16),
+    "internvl2-1b": (4, 640, 2, 7, 64, "ragged", torch.bfloat16),
+    "ring wrapped": (1, 2048, 1, 10, 256, "full", torch.bfloat16),
+    "ring filling": (1, 2048, 1, 10, 256, "ragged", torch.bfloat16),
+    "one position": (3, 300, 2, 2, 32, "one", torch.bfloat16),
+    "hd 8 group 16": (2, 77, 3, 16, 8, "ragged", torch.bfloat16),
+    "f32 smollm-360m": (4, 1024, 5, 3, 64, "ragged", torch.float32),
+    "f32 ring": (2, 600, 1, 10, 256, "ragged", torch.float32),
+}
+
+
+def _da_inputs(dev, b, s, kh, g, hd, kind, dtype, seed=0):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((b, 1, kh, g, hd), (b, s, kh, hd),
+                             (b, s, kh, hd)))
+    if kind == "one":
+        lengths = torch.ones(b, dtype=torch.int32)
+    elif kind == "full":
+        lengths = torch.full((b,), s, dtype=torch.int32)
+    else:
+        lengths = torch.randint(1, s + 1, (b,), dtype=torch.int32,
+                                generator=torch.Generator().manual_seed(seed))
+        lengths[0] = 1 if b > 1 else lengths[0]
+        lengths[-1] = s if b > 2 else lengths[-1]
+    return q, k, v, lengths.to(dev)
+
+
+@pytest.mark.parametrize("label", list(DA_CASES))
+def test_decode_attention_close_to_plain(dev, label):
+    """The kernel against its plain version on the card, within one bf16
+    ulp of each output element (its rounding) and one of the largest (the
+    softmax weights' bf16 roundings, which the f32 sums' order moves); f32
+    within 2^-16 of each and of the largest.  A second call gives the same
+    bits (no atomics)."""
+    b, s, kh, g, hd, kind, dtype = DA_CASES[label]
+    q, k, v, lengths = _da_inputs(dev, b, s, kh, g, hd, kind, dtype)
+    da_ops.reset_launches()
+    got = da_ops.decode_attention(q, k, v, lengths)
+    assert da_ops.launches["decode_attention"] == 1
+    want = da_ref.decode_attention_ref(q, k, v, lengths)
+    assert got.dtype == dtype and got.shape == want.shape
+    tol = 2.0 ** -7 if dtype == torch.bfloat16 else 2.0 ** -16
+    g32, w32 = got.float(), want.float()
+    assert torch.isfinite(g32).all()
+    torch.testing.assert_close(g32, w32, rtol=tol,
+                               atol=tol * w32.abs().max().item())
+    assert torch.equal(da_ops.decode_attention(q, k, v, lengths), got)
+
+
+@pytest.mark.parametrize("what", ["hd 96", "group 17", "int64 lengths",
+                                  "lengths on the host", "strided cache",
+                                  "unaligned cache", "float16"])
+def test_decode_attention_refuses_on_card(dev, what):
+    b, s, kh, g, hd = 2, 64, 2, 2, 64
+    q, k, v, lengths = _da_inputs(dev, b, s, kh, g, hd, "ragged",
+                                  torch.bfloat16)
+    if what == "hd 96":
+        q, k, v = _da_inputs(dev, b, s, kh, g, 96, "ragged",
+                             torch.bfloat16)[:3]
+    elif what == "group 17":
+        q = _da_inputs(dev, b, s, kh, 17, hd, "ragged", torch.bfloat16)[0]
+    elif what == "int64 lengths":
+        lengths = lengths.long()
+    elif what == "lengths on the host":
+        lengths = lengths.cpu()
+    elif what == "strided cache":
+        k = torch.cat([k, k], dim=1)[:, ::2]
+    elif what == "unaligned cache":
+        k = k.new_empty(k.numel() + 1)[1:].view(k.shape).copy_(k)
+    else:
+        q, k, v = (t.to(torch.float16) for t in (q, k, v))
+    da_ops.reset_launches()
+    with pytest.raises(ValueError):
+        da_ops.decode_attention(q, k, v, lengths)
+    assert da_ops.launches["decode_attention"] == 0
+
+
+def test_decode_step_on_card_takes_the_kernel(dev):
+    """A decode step of the reduced olmoe-1b-7b on the card: one kernel
+    call a layer (``launches`` and ``attn.decode_kernel``), no plain call,
+    no ``copy.kv_upcast``, and one sync a layer under ``block.attn`` (the
+    rope's; the plain version's scale and masked score made two more)."""
+    cfg = get("olmoe-1b-7b").reduced()
+    model = build(cfg)
+    params = _to(model.init(torch.Generator().manual_seed(0)), dev)
+    toks = torch.as_tensor((np.arange(9) * 7) % 200, device=dev)[None]
+    _, caches = model.prefill(params, toks, pad_cache_to=32)
+    tok = torch.tensor([[3]], device=dev)
+    pos = torch.tensor([[9]], device=dev)
+    torch.cuda.synchronize()
+    da_ops.reset_launches()
+    with spans.recording():
+        with spans.span("engine.decode"):
+            model.decode_step(params, tok, caches, pos)
+        counters = spans.snapshot().counters
+    torch.cuda.synchronize()
+    layers = cfg.num_layers
+    assert da_ops.launches["decode_attention"] == layers
+    assert counters["attn.decode_kernel"] == layers
+    assert "attn.decode_plain" not in counters
+    assert "copy.kv_upcast" not in counters
+    assert counters.get("sync.block.attn", 0) == layers
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "internvl2-1b",
+                                  "recurrentgemma-2b"])
+def test_reduced_decode_on_card(dev, arch):
+    """The reduced model from the same weights: prefill 40 tokens, then
+    three decode steps through the kernel (recurrentgemma-2b's ring of 32
+    has wrapped), the logits within 8 bf16 epsilons of the largest CPU
+    logit, the tolerance of tests/test_torch_models.py."""
+    cfg = get(arch).reduced()
+    model = build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    card_params = _to(params, dev)
+    toks = torch.as_tensor((np.arange(40) * 7) % 200)[None]
+    want, caches = model.prefill(params, toks, pad_cache_to=48)
+    got, card_caches = model.prefill(card_params, toks.to(dev),
+                                     pad_cache_to=48)
+    da_ops.reset_launches()
+    for step in range(3):
+        tok = torch.argmax(want[0]).reshape(1, 1)
+        pos = torch.tensor([[40 + step]])
+        want, caches = model.decode_step(params, tok, caches, pos)
+        got, card_caches = model.decode_step(card_params, tok.to(dev),
+                                             card_caches, pos.to(dev))
+        tol = 8 * 2.0 ** -7 * want.float().abs().max().item()
+        torch.testing.assert_close(got.float().cpu(), want.float(),
+                                   atol=tol, rtol=0)
+    kinds = cfg.layer_kinds()
+    assert da_ops.launches["decode_attention"] == 3 * (
+        kinds.count("attn") + kinds.count("moe"))

@@ -237,12 +237,25 @@ def test_flash_attention_source_constants_match_ref():
     assert "fmaxf(l[p], 1e-30f)" in src
 
 
+def test_decode_attention_source_constants_match_ref():
+    """The decode-attention kernel's CUDA source repeats ref.py's limits
+    on the head dim and the group."""
+    from repro_torch.kernels.decode_attention import ref
+    src = (PORT / "csrc" / "decode_attention.cu").read_text()
+    assert "constexpr int VEC = 8;" in src
+    assert ref.HEAD_DIMS == tuple(2 ** i for i in range(3, 9))
+    assert f"constexpr int MAX_HEAD_DIM = {ref.HEAD_DIMS[-1]};" in src
+    assert f"constexpr int MAX_GROUP = {ref.MAX_GROUP};" in src
+
+
 def test_build_lists_every_source():
     from repro_torch import _build
     assert _build.SOURCES == {"flit_sim": "csrc/flit_sim.cu",
                               "flit_pack": "csrc/flit_pack.cu",
                               "flash_attention": "csrc/flash_attention.cu",
                               "rglru_scan": "csrc/rglru_scan.cu",
-                              "ssd_scan": "csrc/ssd_scan.cu"}
+                              "ssd_scan": "csrc/ssd_scan.cu",
+                              "decode_attention":
+                                  "csrc/decode_attention.cu"}
     for rel in _build.SOURCES.values():
         assert (PORT / rel).is_file()
