@@ -24,23 +24,17 @@ def pytest_configure(config):
 SHORT_MIX = {"prompt": {"median": 12, "sigma": 0.3, "min": 8, "max": 24},
              "output": {"median": 24, "sigma": 0.3, "min": 16, "max": 48},
              "block": 64}
-#: the reduced cells' limits by reference family, from the CPU at this mix
-#: (12 seeds a cell): sound runs read at most 0.11 (moe: a router near-tie
-#: among 4 experts swaps half a token's MoE output) and 0.009 (ssm: the
-#: tied head at d_model 64 gives small logits); a state left unchanged,
-#: the weakest fault, at least 1.75 and 0.373
-REDUCED_GAP_LIMITS = {"moe": 0.5, "ssm": 0.15}
 
 
 def reduced(name: str, clients: int = 4, requests: int = 4, **workload):
     """Cell ``name`` at its configuration's ``reduced()`` sizes and the
     short mix above, with ``clients`` clients and slots and ``requests``
-    checked."""
+    checked, its gap limit the configuration file's ``reduced_check``."""
     from bench_port import spec
     cell = spec.load_cell(name)
     cfg = spec.model_config(cell.config).reduced()
     limits = dict(cell.workload["check"]["limits"],
-                  logit_gap=REDUCED_GAP_LIMITS[cell.config["reference"]])
+                  logit_gap=cell.config["reduced_check"]["logit_gap"])
     wl = dict(cell.workload, clients=clients, batch_slots=clients,
               max_len=128, check=dict(requests=requests, limits=limits))
     wl.update(workload)

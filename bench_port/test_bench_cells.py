@@ -1,7 +1,6 @@
 """Every cell, configuration, mix and metric of BENCHMARK.json resolves by
 name to files of its own, and the file keeps to the benchmark's
 contract."""
-import dataclasses
 import json
 import re
 
@@ -41,27 +40,10 @@ def test_cell_resolves(name):
     assert cell.workload["check"]["limits"]["logit_gap"] > 0
 
 
-#: settings the published models state and the port's own configurations
-#: leave at its defaults: the norm's epsilon, a tied head, the padded vocab
-PUBLISHED = {"norm_eps", "tie_embeddings", "vocab_size"}
-
-
 @pytest.mark.parametrize("entry", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_file_keeps_the_ports_widths(entry):
-    from repro_torch.configs import get
     cfg_file = json.loads((spec.ROOT / entry["file"]).read_text())
-    assert entry["file"].startswith("bench_port/configs/")
-    assert cfg_file["name"] == entry["name"]
-    assert cfg_file["source"] == entry["source"]
-    assert entry["reduced"] == cfg_file["reduced"] == []
-    cfg = spec.model_config(cfg_file)
-    assert cfg.norm_eps == 1e-5
-    port = dataclasses.asdict(get(entry["name"]))
-    ours = dataclasses.asdict(cfg)
-    assert {k for k in ours if ours[k] != port[k]} <= PUBLISHED
-    assert abs(cfg.vocab_size - port["vocab_size"]) < 16
-    assert (spec.BENCH_DIR / "reference"
-            / f"{cfg_file['reference']}.py").is_file()
+    assert spec.config_problems(entry, cfg_file) == []
 
 
 @pytest.mark.parametrize("metric", BENCH["end_to_end"] + BENCH["per_layer"],
